@@ -1,0 +1,48 @@
+"""Name -> solver registry of the port.
+
+Built on the JAX package's jax-free ``SolverRegistry`` and host factories:
+the CPU names are the same solvers as there. The accelerator names are
+``*-cuda``: ``quasi-mcp-cuda`` is the reference's own name for its
+accelerator solver; ``mcp-cuda`` and ``mcp-cuda-blocked`` mirror
+``mcp-tpu`` and ``mcp-tpu-blocked``. All three run the blocked exact-MCP
+solver on the card; constructing one without a card raises.
+"""
+
+from __future__ import annotations
+
+from genome_downsampler_tpu.solvers.base import Solver
+from genome_downsampler_tpu.solvers.registry import (
+    DEFAULT_SOLVER_NAME,
+    SolverRegistry,
+    _make_greedy,
+    _make_py_greedy,
+    _make_qmcp_cpu,
+    _make_qmcp_lp,
+    _make_test,
+)
+
+__all__ = ["DEFAULT_SOLVER_NAME", "default_registry"]
+
+
+def _make_mcp_cuda() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
+        BlockedWindowedMcpSolver,
+    )
+
+    return BlockedWindowedMcpSolver(device="cuda")
+
+
+def default_registry() -> SolverRegistry:
+    reg = SolverRegistry()
+    reg.register("quasi-mcp-cpu", _make_greedy, uses_quality=False)
+    reg.register("mcp-cpu", _make_greedy, uses_quality=False)
+    reg.register("mcp-cpu-py", _make_py_greedy, uses_quality=False)
+    reg.register("qmcp-cpu", _make_qmcp_cpu, uses_quality=True)
+    reg.register("qmcp-lp-cpu", _make_qmcp_lp, uses_quality=True)
+    # the exact sweep is also the best feasible selection, so the quasi
+    # name maps to it (as quasi-mcp-tpu does in the JAX package)
+    reg.register("quasi-mcp-cuda", _make_mcp_cuda, uses_quality=False)
+    reg.register("mcp-cuda", _make_mcp_cuda, uses_quality=False)
+    reg.register("mcp-cuda-blocked", _make_mcp_cuda, uses_quality=False)
+    reg.register("test", _make_test, uses_quality=False)
+    return reg

@@ -1,0 +1,150 @@
+"""The hand-written CUDA kernels against their plain torch twins, on the
+card. Skipped where there is no CUDA device; on the card run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(``--noconftest``: the suite's conftest imports JAX, which the card's
+machine need not have). Integer bit-equality throughout.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
+from genome_downsampler_tpu_torch import _native
+from genome_downsampler_tpu_torch.ops import blocked
+from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
+    BlockedWindowedMcpSolver,
+    _cross_window_offsets,
+    _selection_mask,
+    pack_bits,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _case(geometry, seed=0):
+    """(start, end, n, W, B, L, chunk) for a named geometry."""
+    rng = np.random.default_rng(seed)
+    if geometry == "small":
+        b = rand_reads_uniform(rng, 800, 900, 48)
+        return np.asarray(b.start, np.int64), np.asarray(b.end, np.int64), 900, 4, 64, 64, 64
+    if geometry == "clumped":
+        start = rng.integers(0, 40, 300)
+        return start, start + rng.integers(5, 32, 300) - 1, 512, 4, 32, 32, 32
+    if geometry == "config4":  # W, B, L of the config-4 solve, 300x deep
+        n = 400_000
+        start = rng.integers(0, n - 150, 800_000)
+        return start, start + 149, n, 32, 128, 256, 128
+    if geometry == "span384":  # the span-upgraded L with B = 128
+        n = 60_000
+        start = rng.integers(0, n - 400, 60_000)
+        return start, start + rng.integers(30, 300, 60_000), n, 8, 128, 384, 128
+    raise ValueError(geometry)
+
+
+def _packed(geometry, dev, seed=0):
+    start, end, n, W, B, L, chunk = _case(geometry, seed)
+    packed, counts, win, n_pad, _ = _native.pack_blocked(
+        start, end, n, W, B, L, cap_multiple=chunk
+    )
+    return (start, end, W, B, L, win, n_pad,
+            torch.tensor(packed, device=dev), torch.tensor(counts, device=dev))
+
+
+@pytest.mark.parametrize(
+    "geometry,auto,grid_offset,seeded",
+    [
+        ("small", False, 0, False),
+        ("small", True, 0, False),
+        ("small", True, 2, True),
+        ("small", False, 1, True),
+        ("clumped", True, 0, False),
+        ("config4", True, 94, False),
+        ("config4", False, 95, True),
+        ("span384", True, 55, False),
+    ],
+)
+def test_sweep_kernel_matches_plain(cuda, geometry, auto, grid_offset, seeded):
+    start, end, W, B, L, win, n_pad, p, c = _packed(geometry, cuda)
+    m = 5
+    target = None
+    if not auto:
+        target = torch.tensor(
+            _native.capped_target(start, end, n_pad, m).reshape(W, win),
+            device=cuda,
+        )
+    rng = np.random.default_rng(5)
+    carries = [
+        torch.tensor(rng.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                     else np.zeros((W, L), np.int32), device=cuda)
+        for _ in range(3)
+    ]
+    kw = dict(grid_offset=grid_offset, avail0i=carries[2], auto_target=auto,
+              max_coverage=m if auto else 0)
+    n0 = blocked.blocked_sweep_pass.launches
+    got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    assert blocked.blocked_sweep_pass.launches == n0 + 1
+    ref = blocked.blocked_sweep_pass_plain(
+        p, c, target, carries[0], carries[1], W, B, L, **kw
+    )
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("geometry", ["small", "clumped", "config4", "span384"])
+def test_windowed_sweep_cuda_matches_host_greedy(cuda, geometry):
+    from genome_downsampler_tpu.solvers.native_greedy import native_greedy_select
+
+    start, end, W, B, L, win, n_pad, p, c = _packed(geometry, cuda)
+    m = 7
+    sel, rounds = blocked.blocked_windowed_sweep(
+        p, c, None, W, B, L, auto_target=True, max_coverage=m
+    )
+    host = native_greedy_select(start, end, n_pad, m)
+    np.testing.assert_array_equal(
+        sel.cpu().numpy(), np.bincount(end[host], minlength=n_pad)
+    )
+    if geometry in ("small", "clumped"):  # the CPU twin is slow at scale
+        sel_cpu, rounds_cpu = blocked.blocked_windowed_sweep(
+            p.cpu(), c.cpu(), None, W, B, L, auto_target=True, max_coverage=m
+        )
+        assert torch.equal(sel.cpu(), sel_cpu) and rounds == rounds_cpu
+
+
+@pytest.mark.parametrize("geometry,m", [("small", 6), ("clumped", 3), ("config4", 50)])
+def test_select_kernel_matches_plain_and_argsort(cuda, geometry, m):
+    start, end, W, B, L, win, n_pad, p, c = _packed(geometry, cuda)
+    sel, _ = blocked.blocked_windowed_sweep(
+        p, c, None, W, B, L, auto_target=True, max_coverage=m
+    )
+    xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=cuda)
+    n0 = blocked.blocked_selection_pass.launches
+    got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
+    torch.cuda.synchronize()
+    assert blocked.blocked_selection_pass.launches == n0 + 1
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B, L))
+    bits, n_sel = _selection_mask(p, sel, W, B, L, win)
+    assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel
+
+
+def test_solver_cuda_matches_cpu_and_host_greedy(cuda):
+    from genome_downsampler_tpu.solvers.native_greedy import NativeGreedyMcpSolver
+
+    rng = np.random.default_rng(9)
+    batch = rand_reads_uniform(rng, 20_000, 300_000, 150)
+    for m in (5, 40):
+        gpu = BlockedWindowedMcpSolver("cuda")
+        sel = gpu.solve(m, batch)
+        np.testing.assert_array_equal(sel, BlockedWindowedMcpSolver("cpu").solve(m, batch))
+        np.testing.assert_array_equal(sel, NativeGreedyMcpSolver().solve(m, batch))
+        assert gpu.last_stats["rounds"] >= 1
