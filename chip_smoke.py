@@ -9,7 +9,7 @@ package's device code. Phases, each of which raises on failure:
 
 1. probe: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions; build the kernels from ``genome_downsampler_tpu_torch/ops/
-   csrc`` and report the build time;
+   csrc`` (one ``nvcc`` per source, in parallel) and report the build time;
 2. kernel B (blocked sweep) == its plain torch twin on the card, on a small
    geometry and on the config-4 solve's own packed codes (W=32, B=128,
    L=256), with and without auto_target, a grid offset and seeded carries;
@@ -17,20 +17,47 @@ package's device code. Phases, each of which raises on failure:
 3. kernel C (selection) == its twin == the argsort engine, at config-4;
 4. the main path at config-4 scale (10M reads of 150 bp, uniform starts
    over 5 Mb, M=50: 300x -> 50x) through ``default_registry().get(
-   "mcp-cuda")``: read set equal to ``mcp-cpu`` (the host C++ greedy),
-   coverage valid at every base, both kernels launched; phase laps and the
-   warm end-to-end time beside the host greedy's;
-5. CLI BAM -> BAM (200k reads over 30 kb, M=100) with ``-a mcp-cuda`` and
-   ``-a mcp-cpu``: the same records.
+   "mcp-cuda")``, which dispatches to the blocked engine there: read set
+   equal to ``mcp-cpu`` (the host C++ greedy), coverage valid at every
+   base, kernels B and C launched and kernel A not; phase laps and the warm
+   end-to-end time beside the host greedy's;
+5. CLI BAM -> BAM (200k reads over 30 kb, M=100: the dense engine) with
+   ``-a mcp-cuda``, ``-a mcp-cuda --windows 4`` and ``-a mcp-cpu``: the same
+   records;
+6. kernel A (dense sweep) == its twin: small shapes (S in {1, 4}, L=64,
+   n=4096, zero and seeded carries, takes off and on), config-1 (a
+   uniform-start stand-in at BASELINE config 0's size: 50k reads over
+   29,903 bases, M=100; takes off and on) and the deep 30 kb cell (1M reads
+   over 29,903 bases, M=1000: the first 4096 positions); kernel and twin
+   times;
+7. the dense main path through ``mcp-cuda`` at config-1, the deep 30 kb cell
+   and the dense engine's edge (2M reads over 262,144 bases, rows of
+   exactly 256 MiB, M=50): read set equal to ``mcp-cpu``, coverage valid,
+   kernel A launched and B and C not; warm solve times beside ``mcp-cpu``;
+8. ``WindowedMcpSolver("cuda", n_windows=32)`` on the config-4 batch
+   (5.1 GB of rows on the card): read set equal to ``mcp-cpu``; the rounds;
+   the warm solve time;
+9. ``solve_batch`` over 8 config-1-size samples in one kernel A launch:
+   each read set equal to ``mcp-cpu`` on its sample;
+10. ``qmcp-sweep-cuda`` at config-1: read set equal to the CPU twin
+    solver's, count equal to ``mcp-cpu``'s, total MAPQ >= ``mcp-cuda``'s,
+    coverage valid.
 
-Integer results must match exactly (tolerance 0). The next-to-last line
-is a JSON object with one entry per kernel; the last line is
+Each path is driven with every launch count set to 0 just before it and
+read just after; each phase prints its wall time. Phases 7-9 also record
+the arguments of the path's last kernel A launch and hold the kernel
+against its twin on them (the head of every row from the path's own
+carries; for the windows also the tail, at the highest addresses of the
+5.1 GB of rows), and time the kernel on the whole launch. Integer results
+must match exactly (tolerance 0). The next-to-last line is a JSON object with
+one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing neither line, without a CUDA device or outside the repository.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -42,10 +69,47 @@ ROOT = Path(__file__).resolve().parent
 SEED = 12345
 C4_READS, C4_GENOME, C4_M, READ_LEN = 10_000_000, 5_000_000, 50, 150
 TAIL_BLOCKS = 4  # blocks per window the plain sweep twin is timed on
+# (pairs, genome, M) of the dense engine's cells, uniform read starts:
+# stand-ins at the size of BASELINE config 0 (a SARS-CoV-2 amplicon BAM) and
+# at the read depth scripts/kernel_variants.py timed kernel A at, and the
+# dense/blocked edge (rows of 256 MiB)
+C1 = (25_000, 29_903, 100)
+DEEP = (500_000, 29_903, 1000)
+EDGE = (1_000_000, 262_144, 50)
+DEEP_CHECK = 4096  # positions per row the plain twin checks (S <= 8)
+WIN_CHECK = 2048  # positions per window row the twin checks, head and tail
+WINDOWS = 32
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def launch_counts():
+    """Each kernel's wrapper, which carries its launch count."""
+    from genome_downsampler_tpu_torch.ops import blocked, sweep
+
+    return {
+        "dense_sweep": sweep.dense_sweep_counts,
+        "blocked_sweep": blocked.blocked_sweep_pass,
+        "blocked_select": blocked.blocked_selection_pass,
+    }
+
+
+def reset_launches():
+    for fn in launch_counts().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {k: fn.launches for k, fn in launch_counts().items()}
+
+
+def expect_launches(got, *launched):
+    """Every kernel in ``launched`` ran at least once, no other did."""
+    bad = {k: v for k, v in got.items() if (v >= 1) != (k in launched)}
+    if bad:
+        raise AssertionError(f"launches {got}: expected only {launched} to run")
 
 
 def cuda_ms(fn, reps=1):
@@ -209,28 +273,21 @@ def phase_main_path(dev, batch, report):
     import torch
 
     from genome_downsampler_tpu.solvers.native_greedy import NativeGreedyMcpSolver
-    from genome_downsampler_tpu_torch.ops import blocked
-    from genome_downsampler_tpu_torch.ops.coverage import (
-        coverage_from_intervals,
-        coverage_is_valid,
-    )
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
     reg = default_registry()
     solver = reg.get("mcp-cuda")
     solver.solve(C4_M, batch)  # warm-up: library load, allocator, clocks
-    blocked.blocked_sweep_pass.launches = 0
-    blocked.blocked_selection_pass.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sel = solver.solve(C4_M, batch)
     torch.cuda.synchronize()
     e2e = time.perf_counter() - t0
-    launches = {
-        "blocked_sweep": blocked.blocked_sweep_pass.launches,
-        "blocked_select": blocked.blocked_selection_pass.launches,
-    }
+    launches = read_launches()
     stats = solver.inner.last_stats
+    if stats["engine"] != "blocked":
+        raise AssertionError(f"mcp-cuda ran the {stats['engine']} engine at config-4")
 
     t0 = time.perf_counter()
     host = reg.get("mcp-cpu").solve(C4_M, batch)
@@ -240,27 +297,39 @@ def phase_main_path(dev, batch, report):
         raise AssertionError(
             f"mcp-cuda read set differs from mcp-cpu ({len(sel)} vs {len(host)})"
         )
-    s = torch.tensor(batch.start, device=dev)
-    e = torch.tensor(batch.end, device=dev)
-    cov_in = coverage_from_intervals(s, e, batch.ref_genome_length)
-    cov_out = coverage_from_intervals(s[torch.tensor(sel, device=dev)],
-                                      e[torch.tensor(sel, device=dev)],
-                                      batch.ref_genome_length)
-    if not coverage_is_valid(cov_in, cov_out, C4_M):
-        raise AssertionError("min(cov_in, M) <= cov_out fails somewhere")
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path was not launched: {launches}")
+    check_valid(dev, batch, sel, C4_M)
+    expect_launches(launches, "blocked_sweep", "blocked_select")
     log(f"  mcp-cuda == mcp-cpu: {len(sel)} of {batch.n_reads} reads selected; "
         f"coverage valid at all {batch.ref_genome_length} bases")
     log(f"  launches in the timed solve: {launches}")
     log(f"  last_stats: {json.dumps(stats)}")
     log(f"  warm end-to-end mcp-cuda solve {e2e:.4f} s vs host C++ greedy "
         f"(mcp-cpu) {host_s:.4f} s  [{report}]")
-    return launches
+    return launches, host
+
+
+def check_valid(dev, batch, sel, m):
+    """``min(cov_in, M) <= cov_out`` at every base, on the card."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops.coverage import (
+        coverage_from_intervals,
+        coverage_is_valid,
+    )
+
+    s = torch.tensor(batch.start, device=dev)
+    e = torch.tensor(batch.end, device=dev)
+    idx = torch.tensor(sel, device=dev)
+    n = batch.ref_genome_length
+    cov_in = coverage_from_intervals(s, e, n)
+    cov_out = coverage_from_intervals(s[idx], e[idx], n)
+    if not coverage_is_valid(cov_in, cov_out, m):
+        raise AssertionError("min(cov_in, M) <= cov_out fails somewhere")
 
 
 def phase_cli(report):
-    """BAM -> BAM through the port's CLI with mcp-cuda and mcp-cpu."""
+    """BAM -> BAM through the port's CLI with mcp-cuda (the dense engine at
+    30 kb), mcp-cuda --windows 4 and mcp-cpu."""
     import numpy as np
 
     from genome_downsampler_tpu.config import BamApiConfig
@@ -270,32 +339,350 @@ def phase_cli(report):
 
     rng = np.random.default_rng(SEED)
     batch = rand_reads_uniform(rng, 100_000, 30_000, 150)
+    runs = {"mcp-cuda": ["-a", "mcp-cuda"],
+            "mcp-cuda --windows 4": ["-a", "mcp-cuda", "--windows", "4"],
+            "mcp-cpu": ["-a", "mcp-cpu"]}
     with tempfile.TemporaryDirectory() as d:
         src = Path(d) / "in.bam"
         write_test_bam_fast(src, batch)
         outs = {}
-        for algo in ("mcp-cuda", "mcp-cpu"):
-            out = Path(d) / f"{algo}.bam"
+        for i, (name, flags) in enumerate(runs.items()):
+            out = Path(d) / f"out{i}.bam"
             t0 = time.perf_counter()
             subprocess.run(
                 [sys.executable, "-m", "genome_downsampler_tpu_torch", str(src),
-                 "100", "-o", str(out), "-a", algo, "-l", "0", "-q", "0"],
+                 "100", "-o", str(out), *flags, "-l", "0", "-q", "0"],
                 cwd=ROOT, check=True, timeout=600,
             )
-            log(f"  CLI -a {algo}: {time.perf_counter() - t0:.3f} s (process, incl. start-up)")
-            outs[algo] = out
+            log(f"  CLI {' '.join(flags)}: {time.perf_counter() - t0:.3f} s "
+                "(process, incl. start-up)")
+            outs[name] = out
         cfg = BamApiConfig(min_seq_length=0, min_mapq=0)
-        a, _, _ = read_bam(outs["mcp-cuda"], cfg)
-        b, _, _ = read_bam(outs["mcp-cpu"], cfg)
-        same = a.n_reads == b.n_reads and all(
-            np.array_equal(getattr(a, f), getattr(b, f))
-            for f in ("start", "end", "quality", "bam_id")
-        )
-        if not same:
-            raise AssertionError("CLI outputs of mcp-cuda and mcp-cpu differ")
-        identical = outs["mcp-cuda"].read_bytes() == outs["mcp-cpu"].read_bytes()
-        log(f"  CLI outputs hold the same {a.n_reads} records of {batch.n_reads} "
-            f"(byte-identical files: {identical})  [{report}]")
+        ref, _, _ = read_bam(outs["mcp-cpu"], cfg)
+        for name in ("mcp-cuda", "mcp-cuda --windows 4"):
+            a, _, _ = read_bam(outs[name], cfg)
+            same = a.n_reads == ref.n_reads and all(
+                np.array_equal(getattr(a, f), getattr(ref, f))
+                for f in ("start", "end", "quality", "bam_id")
+            )
+            if not same:
+                raise AssertionError(f"CLI outputs of {name} and mcp-cpu differ")
+            identical = outs[name].read_bytes() == outs["mcp-cpu"].read_bytes()
+            log(f"  CLI {name} == mcp-cpu: the same {a.n_reads} records of "
+                f"{batch.n_reads} (byte-identical files: {identical})  [{report}]")
+
+
+def uniform_batch(pairs, genome, seed=SEED):
+    import numpy as np
+
+    from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
+
+    return rand_reads_uniform(np.random.default_rng(seed), pairs, genome, READ_LEN)
+
+
+def timed_once(fn):
+    """``(fn(), device-timeline ms)`` of one run, no warm-up."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def kernel_a_vs_plain(what, rows, target, a0, s0, takes=False):
+    """Kernel A against its twin on the same inputs; returns (max |err|,
+    the twin's ms)."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import sweep
+
+    L = rows.shape[2]
+    got = sweep.dense_sweep_counts(rows, target, a0, s0, L, takes=takes)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: sweep.dense_sweep_counts_plain(
+        rows, target, a0, s0, L, takes=takes))
+    err = max_abs_err(got, ref)
+    seeded = bool(a0.any() or s0.any())
+    log(f"  kernel A == plain: {what} S={rows.shape[0]} n={rows.shape[1]} "
+        f"L={L} takes={takes} seeded={seeded}")
+    return err, plain_ms
+
+
+def row_head(x, n):
+    """The first ``n`` positions of every row, contiguous."""
+    return x[:, :n].contiguous()
+
+
+@contextlib.contextmanager
+def kernel_a_calls(module):
+    """Record the arguments of every kernel A launch a path makes through
+    ``module.dense_sweep_counts``: the shapes and carries it gives the
+    kernel. The launches run, and count, as they would without it."""
+    from genome_downsampler_tpu_torch.ops import sweep
+
+    calls = []
+
+    def recorded(*args, **kw):
+        calls.append((args, kw))
+        return sweep.dense_sweep_counts(*args, **kw)
+
+    module.dense_sweep_counts = recorded
+    try:
+        yield calls
+    finally:
+        module.dense_sweep_counts = sweep.dense_sweep_counts
+
+
+def phase_dense_kernel(dev, report):
+    """Kernel A against its twin; returns the kernel's JSON entry."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.solvers.device_sweep import _dense_inputs
+
+    errs = []
+
+    def check(what, rows, target, a0, s0, takes):
+        err, plain_ms = kernel_a_vs_plain(what, rows, target, a0, s0, takes)
+        errs.append(err)
+        return plain_ms
+
+    # the CPU tests' shapes: L=64, n=4096
+    for S in (1, 4):
+        rows, targets = [], []
+        for i in range(S):
+            b = uniform_batch(2000, 4096, SEED + i)
+            t, r = _dense_inputs(b, 4096, 3 + i, 64, dev)
+            rows.append(r)
+            targets.append(t)
+        rows, target = torch.cat(rows), torch.cat(targets)
+        g = torch.Generator().manual_seed(SEED)
+        for seeded in (False, True):
+            carries = [
+                (torch.randint(0, 4, (S, 64), generator=g, dtype=torch.int32)
+                 if seeded else torch.zeros((S, 64), dtype=torch.int32)).to(dev)
+                for _ in range(2)
+            ]
+            for takes in (False, True):
+                check("small", rows, target, *carries, takes)
+
+    # config-1, the whole genome
+    pairs, n, m = C1
+    target, rows = _dense_inputs(uniform_batch(pairs, n), n, m, 256, dev)
+    z = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+    plain_ms = check("config-1", rows, target, z, z, False)
+    check("config-1", rows, target, z, z, True)
+    ms = cuda_ms(lambda: sweep.dense_sweep_counts(rows, target, z, z, 256), 5)
+    takes_ms = cuda_ms(
+        lambda: sweep.dense_sweep_counts(rows, target, z, z, 256, takes=True), 5)
+
+    # deep 30 kb: the twin checks the first positions, the kernel runs all
+    pairs, n, m = DEEP
+    target, rows = _dense_inputs(uniform_batch(pairs, n), n, m, 256, dev)
+    head_r, head_t = row_head(rows, DEEP_CHECK), row_head(target, DEEP_CHECK)
+    deep_plain_ms = check("deep 30 kb head", head_r, head_t, z, z, False)
+    full = sweep.dense_sweep_counts(rows, target, z, z, 256)[0]
+    head = sweep.dense_sweep_counts(head_r, head_t, z, z, 256)[0]
+    errs.append(max_abs_err([full[:, :DEEP_CHECK]], [head]))
+    deep_ms = cuda_ms(lambda: sweep.dense_sweep_counts(rows, target, z, z, 256), 5)
+    deep_head_ms = cuda_ms(lambda: sweep.dense_sweep_counts(head_r, head_t, z, z, 256), 5)
+    log(f"  config-1 ({C1[1]} positions): kernel {ms:.3f} ms "
+        f"({1e6 * ms / C1[1]:.1f} ns/position), takes mode {takes_ms:.3f} ms, "
+        f"plain twin {plain_ms:.3f} ms  [{report}]")
+    log(f"  deep 30 kb ({DEEP[1]} positions): kernel {deep_ms:.3f} ms "
+        f"({1e6 * deep_ms / DEEP[1]:.1f} ns/position); first {DEEP_CHECK} positions: "
+        f"kernel {deep_head_ms:.3f} ms, plain twin {deep_plain_ms:.3f} ms  [{report}]")
+    return {
+        "name": "dense_sweep", "route": "cuda",
+        "source": "genome_downsampler_tpu_torch/ops/csrc/dense_sweep.cu",
+        "replaces": "genome_downsampler_tpu/ops/pallas_sweep.py:55",
+        "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+        "timed_on": f"config-1: S=1, n={C1[1]}, L=256",
+        "takes_ms": takes_ms, "deep_30kb_ms": deep_ms,
+        "deep_head_ms": deep_head_ms, "deep_head_plain_ms": deep_plain_ms,
+    }
+
+
+def solve_pair(dev, reg, name, batch, m, report, label):
+    """Warm solve of ``name`` with the counts reset just before and read
+    just after, against mcp-cpu; returns (selection, launches, stats)."""
+    import numpy as np
+    import torch
+
+    solver = reg.get(name)
+    solver.solve(m, batch)  # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel = solver.solve(m, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    host = reg.get("mcp-cpu").solve(m, batch)
+    host_s = time.perf_counter() - t0
+    if name.startswith("mcp") and not np.array_equal(sel, host):
+        raise AssertionError(f"{name} read set differs from mcp-cpu at {label} "
+                             f"({len(sel)} vs {len(host)})")
+    check_valid(dev, batch, sel, m)
+    stats = getattr(solver.inner, "last_stats", None)
+    log(f"  {label}: {name} {len(sel)} of {batch.n_reads} reads, coverage valid "
+        f"at all {batch.ref_genome_length} bases; launches {launches}; warm solve "
+        f"{dt:.4f} s vs mcp-cpu {host_s:.4f} s  [{report}]")
+    if stats:
+        log(f"    last_stats: {json.dumps(stats)}")
+    return sel, host, launches
+
+
+def phase_dense_path(dev, report):
+    """mcp-cuda at config-1, the deep 30 kb and the edge: the dense
+    engine. Kernel A against its twin on the head of each path's own
+    launch, and timed on the whole of it. Returns (kernel A's launches in
+    the config-1 run, max |err|, {cell: kernel ms})."""
+    from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.solvers import device_sweep
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    reg = default_registry()
+    launches, errs, kernel_ms = {}, [], {}
+    for label, (pairs, n, m) in (("config-1", C1), ("deep 30 kb", DEEP),
+                                 ("edge", EDGE)):
+        batch = uniform_batch(pairs, n)
+        if reg.get("mcp-cuda").inner._pick_engine(n) != "dense":
+            raise AssertionError(f"{label}: {n} bases do not pick the dense engine")
+        with kernel_a_calls(device_sweep) as calls:
+            _, _, launches[label] = solve_pair(dev, reg, "mcp-cuda", batch, m,
+                                               report, label)
+        expect_launches(launches[label], "dense_sweep")
+        args, kw = calls[-1]
+        rows, target, a0, s0, L = args
+        errs.append(kernel_a_vs_plain(
+            f"{label} path's launch, head", row_head(rows, DEEP_CHECK),
+            row_head(target, DEEP_CHECK), a0, s0, **kw)[0])
+        kernel_ms[label] = cuda_ms(lambda: sweep.dense_sweep_counts(*args, **kw), 3)
+        log(f"  {label}: kernel A alone on the path's launch (S={rows.shape[0]}, "
+            f"n={rows.shape[1]}): {kernel_ms[label]:.3f} ms "
+            f"({1e6 * kernel_ms[label] / rows.shape[1]:.1f} ns/position)  [{report}]")
+        del calls, args, rows, target
+    return launches["config-1"]["dense_sweep"], max(errs), kernel_ms
+
+
+def phase_windowed(batch, host, report):
+    """The windowed solver at config-4, warm; kernel A against its twin on
+    the last round's launch (S=W rows, seeded carries). Returns (max |err|,
+    kernel ms of that launch)."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.parallel import windows
+
+    solver = windows.WindowedMcpSolver("cuda", n_windows=WINDOWS)
+    solver.solve(C4_M, batch)  # warm-up
+    with kernel_a_calls(windows) as calls:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel = solver.solve(C4_M, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+    expect_launches(launches, "dense_sweep")
+    if not np.array_equal(sel, host):
+        raise AssertionError(f"windowed read set differs from mcp-cpu "
+                             f"({len(sel)} vs {len(host)})")
+    rounds = solver.last_stats["rounds"]
+    if launches["dense_sweep"] != rounds:
+        raise AssertionError(f"{rounds} rounds but {launches} launches")
+    log(f"  windowed W={WINDOWS} == mcp-cpu at config-4: {len(sel)} reads; "
+        f"{rounds} rounds; launches {launches}; warm solve {dt:.4f} s  [{report}]")
+
+    # the last round: the head of every window from its seeded carries, and
+    # the tail of every window (the highest addresses of the rows) from the
+    # carries the kernel leaves after the rest, against the whole launch
+    rows, target, a0, s0, L = calls[-1][0]
+    n, T = rows.shape[1], WIN_CHECK
+    errs = [kernel_a_vs_plain("windowed last round, head", row_head(rows, T),
+                              row_head(target, T), a0, s0)[0]]
+    full = sweep.dense_sweep_counts(rows, target, a0, s0, L)
+    _, a_mid, s_mid = sweep.dense_sweep_counts(
+        row_head(rows, n - T), row_head(target, n - T), a0, s0, L)
+    ref = sweep.dense_sweep_counts_plain(
+        rows[:, n - T:].contiguous(), target[:, n - T:].contiguous(), a_mid, s_mid, L)
+    errs.append(max_abs_err([full[0][:, n - T:], full[1], full[2]], ref))
+    log(f"  kernel A whole launch == kernel on the first {n - T} positions, then "
+        f"plain on the last {T}: S={rows.shape[0]} n={n} L={L}")
+    ms = cuda_ms(lambda: sweep.dense_sweep_counts(rows, target, a0, s0, L), 3)
+    log(f"  kernel A alone on one round (S={rows.shape[0]}, n={n}): {ms:.3f} ms "
+        f"({1e6 * ms / n:.1f} ns/position)  [{report}]")
+    return max(errs), ms
+
+
+def phase_batched(report):
+    """solve_batch over 8 samples, warm; kernel A against its twin on the
+    head of the launch's 8 rows. Returns max |err|."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch.solvers import batched
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    pairs, n, m = C1
+    batches = [uniform_batch(pairs, n, SEED + i) for i in range(8)]
+    batched.solve_batch(batches, m, "cuda")  # warm-up
+    with kernel_a_calls(batched) as calls:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sels = batched.solve_batch(batches, m, "cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches()
+    expect_launches(launches, "dense_sweep")
+    if launches["dense_sweep"] != 1:
+        raise AssertionError(f"solve_batch took {launches} launches, not one")
+    host = default_registry().get("mcp-cpu")
+    t0 = time.perf_counter()
+    for i, (b, sel) in enumerate(zip(batches, sels)):
+        if not np.array_equal(sel, host.solve(m, b)):
+            raise AssertionError(f"batched sample {i} differs from mcp-cpu")
+    host_s = time.perf_counter() - t0
+    log(f"  solve_batch over 8 config-1 samples == mcp-cpu on each "
+        f"({[len(x) for x in sels]} reads); launches {launches}; warm "
+        f"{dt:.4f} s vs mcp-cpu on the 8 in turn {host_s:.4f} s  [{report}]")
+    rows, target, a0, s0, _ = calls[-1][0]
+    return kernel_a_vs_plain("batched launch, head", row_head(rows, DEEP_CHECK),
+                             row_head(target, DEEP_CHECK), a0, s0)[0]
+
+
+def phase_qmcp(dev, report):
+    import numpy as np
+
+    from genome_downsampler_tpu_torch.solvers.device_sweep import QmcpDeviceSweepSolver
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    pairs, n, m = C1
+    batch = uniform_batch(pairs, n)
+    reg = default_registry()
+    sel, host, launches = solve_pair(dev, reg, "qmcp-sweep-cuda", batch, m, report,
+                                     "config-1")
+    expect_launches(launches, "dense_sweep")
+    cpu = QmcpDeviceSweepSolver("cpu").solve(m, batch)
+    if not np.array_equal(sel, cpu):
+        raise AssertionError("qmcp-sweep-cuda differs from its CPU twin solver")
+    if len(sel) != len(host):
+        raise AssertionError(f"qmcp-sweep-cuda count {len(sel)} != mcp-cpu {len(host)}")
+    q = np.asarray(batch.quality, np.int64)
+    mcp = reg.get("mcp-cuda").solve(m, batch)
+    if q[sel].sum() < q[mcp].sum():
+        raise AssertionError("qmcp-sweep-cuda lost total MAPQ against mcp-cuda")
+    log(f"  qmcp-sweep-cuda == CPU twin solver; count {len(sel)} == mcp-cpu; "
+        f"total MAPQ {int(q[sel].sum())} >= mcp-cuda's {int(q[mcp].sum())}")
 
 
 def main() -> int:
@@ -316,13 +703,24 @@ def main() -> int:
 
     dev = require_cuda()
     report = gpu_report()
-    log("[1] probe")
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def phase(title):
+        now = time.perf_counter()
+        if len(t_phase) > 1:
+            log(f"  (phase wall time {now - t_phase[-1]:.1f} s)")
+        t_phase.append(now)
+        if title:
+            log(title)
+
+    phase("[1] probe")
     log(f"  card: {report}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
     build.build_kernels(force=True)
     log(f"  kernels built from source in {build.build_seconds:.1f} s "
-        f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+        f"(nvcc {' '.join(build.NVCC_FLAGS)}, one process per source)")
     build.load_kernels()
 
     t0 = time.perf_counter()
@@ -351,18 +749,34 @@ def main() -> int:
     log(f"  config-4 data: {C4_READS} reads, {C4_GENOME} bases, W={W} B={B} L={L} "
         f"cap={cap} nbw={win // B} ({time.perf_counter() - t0:.1f} s to make and pack)")
 
-    log("[2] kernel B (blocked sweep) vs plain twin")
+    phase("[2] kernel B (blocked sweep) vs plain twin")
     entries = [phase_sweep(dev, c4, report)]
-    log("[3] kernel C (selection) vs plain twin and argsort engine")
+    phase("[3] kernel C (selection) vs plain twin and argsort engine")
     entries.append(phase_select(dev, c4, report))
     del c4
-    log("[4] main path at config-4 through mcp-cuda")
-    launches = phase_main_path(dev, batch, report)
+    phase("[4] main path at config-4 through mcp-cuda (blocked engine)")
+    launches, host4 = phase_main_path(dev, batch, report)
     for ent in entries:
         ent["launches"] = launches[ent["name"]]
-    del batch
-    log("[5] CLI BAM -> BAM")
+    phase("[5] CLI BAM -> BAM")
     phase_cli(report)
+    phase("[6] kernel A (dense sweep) vs plain twin")
+    dense = phase_dense_kernel(dev, report)
+    entries.insert(0, dense)
+    phase("[7] dense main path through mcp-cuda")
+    dense["launches"], err7, path_ms = phase_dense_path(dev, report)
+    dense["edge_ms"] = path_ms["edge"]
+    phase(f"[8] windowed solver, W={WINDOWS}, at config-4")
+    err8, dense["windowed_round_ms"] = phase_windowed(batch, host4, report)
+    del batch, host4
+    torch.cuda.empty_cache()
+    phase("[9] solve_batch over 8 samples")
+    err9 = phase_batched(report)
+    dense["max_abs_err"] = max(dense["max_abs_err"], err7, err8, err9)
+    phase("[10] qmcp-sweep-cuda at config-1")
+    phase_qmcp(dev, report)
+    phase(None)
+    log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": entries}))
     print(report)

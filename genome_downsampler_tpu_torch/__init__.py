@@ -10,11 +10,15 @@ Layer map:
 
 - ``device``    CUDA probe (``require_cuda``) and the card report line
 - ``_native``   ctypes bindings to the shared ``_bamio.so`` packers
-- ``ops``       coverage ops, the kernel build, the blocked sweep and
-                selection passes (CUDA kernels + plain torch twins)
-- ``solvers``   the blocked exact-MCP solver, the sequential oracle sweep,
-                and the registry with ``*-cuda`` names
+- ``ops``       coverage ops, the kernel build, the dense sweep (kernel A)
+                and the blocked sweep and selection passes (kernels B, C),
+                each a CUDA kernel with a plain torch twin
+- ``solvers``   ``McpDeviceSweepSolver`` (dense engine, blocked above
+                262,144 bases), ``QmcpDeviceSweepSolver``, the blocked
+                solver, ``solve_batch``, and the registry (``*-cuda``)
+- ``parallel``  ``WindowedMcpSolver``: genome windows as kernel A's rows
 - ``cli``       ``python -m genome_downsampler_tpu_torch IN.bam M ...``
+- ``entry``     the single-device entry point (the sweep at a small size)
 
 This package never imports ``jax``.
 """

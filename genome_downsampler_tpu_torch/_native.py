@@ -55,6 +55,10 @@ def _load():
         lib.gd_capped_target.argtypes = [
             _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _I32P,
         ]
+        lib.gd_reconstruct.restype = ctypes.c_int64
+        lib.gd_reconstruct.argtypes = [
+            _I64P, _I64P, ctypes.c_int64, _I64P, ctypes.c_int64, _U8P,
+        ]
         _lib = lib
     return _lib
 
@@ -161,3 +165,21 @@ def capped_target(start, end, n_pad: int, max_coverage: int) -> np.ndarray:
     if rc != 0:
         raise ValueError("gd_capped_target: invalid reads (bounds)")
     return out
+
+
+def reconstruct(start, end, sel_per_end) -> np.ndarray:
+    """Read indices for per-end selected counts: in each end bucket the
+    first ``sel_per_end[e]`` reads by (start, index) (threaded C counting
+    sort, O(R + n))."""
+    lib = _load()
+    s, e, spe = _i64(start), _i64(end), _i64(sel_per_end)
+    mask = np.empty(s.shape[0], np.uint8)
+    total = lib.gd_reconstruct(
+        s.ctypes.data_as(_I64P), e.ctypes.data_as(_I64P), s.shape[0],
+        spe.ctypes.data_as(_I64P), spe.shape[0], mask.ctypes.data_as(_U8P),
+    )
+    if total < 0:
+        raise ValueError(
+            "gd_reconstruct: invalid reads or per-end quota exceeds bucket"
+        )
+    return np.flatnonzero(mask).astype(np.int64)

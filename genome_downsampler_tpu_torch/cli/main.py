@@ -8,8 +8,10 @@
 The arguments, the ``test`` subcommand and the flow (read the BAM, solve
 contig by contig, add mates, write) are those of the JAX package's CLI,
 whose parser and test runner are reused; the solvers come from this
-package's registry (``*-cuda`` names). ``--sharded``, ``--windows`` and
-``--profile-dir`` are not ported yet and are refused.
+package's registry (``*-cuda`` names). ``--windows N`` (N > 1) runs
+``WindowedMcpSolver`` on the card and is accepted only with ``mcp-cuda`` /
+``quasi-mcp-cuda``. ``--sharded`` and ``--profile-dir`` are not ported yet
+and are refused.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 
 from genome_downsampler_tpu.cli.main import build_parser, build_test_parser, run_test
 from genome_downsampler_tpu.config import AmpliconBehaviour, BamApiConfig
+from genome_downsampler_tpu.solvers.base import SpanGuard
 from genome_downsampler_tpu.utils.logging import get_logger, set_verbosity
 from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
@@ -32,7 +35,6 @@ _log = get_logger("torch.cli")
 def run_downsample(args, registry) -> int:
     unported = {
         "--sharded": args.sharded,
-        "--windows": args.windows != 1,
         "--profile-dir": args.profile_dir is not None,
     }
     for flag, given in unported.items():
@@ -68,7 +70,19 @@ def run_downsample(args, registry) -> int:
         tsv_path=args.tsv,
     )
     # built before the input is read: a *-cuda name without a card raises
-    solver = registry.get(args.algorithm)
+    if args.windows > 1:
+        if args.algorithm not in ("mcp-cuda", "quasi-mcp-cuda"):
+            _log.error(
+                "--windows is only supported with mcp-cuda/quasi-mcp-cuda; "
+                "algorithm %r would silently ignore it", args.algorithm)
+            return 1
+        from genome_downsampler_tpu_torch.parallel.windows import (
+            WindowedMcpSolver,
+        )
+
+        solver = SpanGuard(WindowedMcpSolver("cuda", n_windows=args.windows))
+    else:
+        solver = registry.get(args.algorithm)
 
     from genome_downsampler_tpu.io.bam import BamReader
 

@@ -1,2 +1,2 @@
-"""Device ops of the port: coverage, kernel build, blocked sweep and
-selection passes."""
+"""Device ops of the port: coverage, kernel build, the dense sweep and the
+blocked sweep and selection passes."""

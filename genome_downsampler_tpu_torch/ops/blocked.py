@@ -111,6 +111,20 @@ def _shift(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(x[:, 1:], (0, 1))
 
 
+def _avail_step(avail, selend, add, tgt):
+    """One avail-form sweep step of every row (``(rows, L)`` rings,
+    ``(rows,)`` targets): fold in the arrivals ``add``, take the deficit
+    from the farthest end slots first. Returns ``(take, avail, selend)``
+    after the take, before the shift."""
+    avail = avail + add
+    deficit = (tgt - selend.sum(1, dtype=torch.int32)).clamp(min=0)
+    above = torch.flip(
+        torch.cumsum(torch.flip(avail, [1]), 1, dtype=torch.int32), [1]
+    ) - avail
+    take = torch.minimum((deficit[:, None] - above).clamp(min=0), avail)
+    return take, avail - take, selend + take
+
+
 def blocked_sweep_pass_plain(
     packed, counts, target, avail0, selend0, n_windows, block, max_span, *,
     grid_offset=0, avail0i=None, auto_target=False, max_coverage=0,
@@ -128,19 +142,12 @@ def blocked_sweep_pass_plain(
     for t in range(grid_offset, nbw):
         rows = _arrival_rows(packed[t], B, L)
         for b in range(B):
-            avail = avail + rows[b]
             if auto_target:
                 availi = availi + rows[b]
                 tgt = availi.sum(1, dtype=torch.int32).clamp(max=max_coverage)
             else:
                 tgt = target[:, t * B + b]
-            deficit = (tgt - selend.sum(1, dtype=torch.int32)).clamp(min=0)
-            above = torch.flip(
-                torch.cumsum(torch.flip(avail, [1]), 1, dtype=torch.int32), [1]
-            ) - avail
-            take = torch.minimum((deficit[:, None] - above).clamp(min=0), avail)
-            avail = avail - take
-            selend = selend + take
+            _, avail, selend = _avail_step(avail, selend, rows[b], tgt)
             out[:, (t - grid_offset) * B + b] = selend[:, 0]
             avail, selend = _shift(avail), _shift(selend)
             if auto_target:

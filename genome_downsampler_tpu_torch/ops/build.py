@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
+The sources are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, at first use, under
 ``build/gd_kernels/`` at the repository root (git-ignored), and loaded with
 ctypes: pointers and the CUDA stream pass as ``c_void_p``, sizes as
@@ -21,10 +22,9 @@ from pathlib import Path
 _CSRC = Path(__file__).parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gd_kernels"
 _LIB_NAME = "libgd_kernels.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+#: flags of each source's compile (``-c``); the link adds ``-shared``
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 #: seconds the last ``build_kernels`` call spent compiling (0.0 when cached)
@@ -39,6 +39,9 @@ _SIGNATURES = {
     "gd_blocked_sweep": [_P] * 10 + [_I] * 8 + [_P],
     # (packed, counts, sel, xwin, out, nbw, W, cap, B, L, stream)
     "gd_blocked_select": [_P] * 5 + [_I] * 5 + [_P],
+    # (rows, target, avail0, selend0, out, takes, availf, selendf,
+    #  S, n, L, takes_mode, stream)
+    "gd_dense_sweep": [_P] * 8 + [_I] * 4 + [_P],
 }
 
 
@@ -71,22 +74,41 @@ def build_kernels(force: bool = False) -> Path:
         build_seconds = 0.0
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    # build under a private name, then rename: concurrent first uses never
+    nvcc = _nvcc()
+    # build under private names, then rename: concurrent first uses never
     # load a half-written library
-    tmp = out.with_name(f"{_LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-        *[str(s) for s in srcs],
-    ]
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    tmp = out.with_name(f"{_LIB_NAME}.{tag}")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    try:
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)
+        ]
+        procs = [
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+            for cmd in compiles
+        ]
+        results = [p.communicate() for p in procs]
+        for cmd, p, (_, err) in zip(compiles, procs, results):
+            if p.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{err}"
+                )
+        link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                f"{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        build_seconds = time.perf_counter() - t0
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
     return out
 
 

@@ -13,7 +13,7 @@ import torch
 
 from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
 from genome_downsampler_tpu_torch import _native
-from genome_downsampler_tpu_torch.ops import blocked
+from genome_downsampler_tpu_torch.ops import blocked, sweep
 from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
     BlockedWindowedMcpSolver,
     _cross_window_offsets,
@@ -148,3 +148,84 @@ def test_solver_cuda_matches_cpu_and_host_greedy(cuda):
         np.testing.assert_array_equal(sel, BlockedWindowedMcpSolver("cpu").solve(m, batch))
         np.testing.assert_array_equal(sel, NativeGreedyMcpSolver().solve(m, batch))
         assert gpu.last_stats["rounds"] >= 1
+
+
+def _dense_case(S, n, L, m, seed):
+    """Arrival rows [S, n, L] and capped targets [S, n] of S seeded samples."""
+    rows, targets = [], []
+    for s in range(S):
+        rng = np.random.default_rng(seed + s)
+        b = rand_reads_uniform(rng, n // 2, n, min(L - 4, n // 4))
+        start, end = np.asarray(b.start), np.asarray(b.end)
+        r = np.zeros((n, L), np.int32)
+        np.add.at(r, (start, end - start), 1)
+        rows.append(r)
+        targets.append(_native.capped_target(start, end, n, m))
+    return np.stack(rows), np.stack(targets)
+
+
+@pytest.mark.parametrize(
+    "S,n,L,seeded,takes",
+    [
+        (1, 4096, 64, False, False),
+        (1, 4096, 64, True, True),
+        (4, 4096, 64, True, False),
+        (4, 4096, 64, False, True),
+        (3, 1000, 32, True, False),
+        (2, 700, 768, True, True),
+        (2, 2000, 256, True, False),
+    ],
+)
+def test_dense_sweep_kernel_matches_plain(cuda, S, n, L, seeded, takes):
+    rows, target = _dense_case(S, n, L, 6, seed=S * 100 + L)
+    rng = np.random.default_rng(5)
+    carries = [
+        torch.tensor(rng.integers(0, 4, (S, L)).astype(np.int32) if seeded
+                     else np.zeros((S, L), np.int32), device=cuda)
+        for _ in range(2)
+    ]
+    args = (torch.tensor(rows, device=cuda), torch.tensor(target, device=cuda),
+            *carries, L)
+    n0 = sweep.dense_sweep_counts.launches
+    got = sweep.dense_sweep_counts(*args, takes=takes)
+    torch.cuda.synchronize()
+    assert sweep.dense_sweep_counts.launches == n0 + 1
+    ref = sweep.dense_sweep_counts_plain(*args, takes=takes)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_dense_sweep_kernel_rejects_unsupported_span(cuda):
+    z = torch.zeros((1, 48), dtype=torch.int32, device=cuda)
+    rows = torch.zeros((1, 10, 48), dtype=torch.int32, device=cuda)
+    t = torch.zeros((1, 10), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="max_span"):
+        sweep.dense_sweep_counts(rows, t, z, z, 48)
+
+
+def test_dense_solvers_cuda_match_host_greedy(cuda):
+    from genome_downsampler_tpu.solvers.native_greedy import NativeGreedyMcpSolver
+    from genome_downsampler_tpu_torch.parallel.windows import WindowedMcpSolver
+    from genome_downsampler_tpu_torch.solvers.batched import solve_batch
+    from genome_downsampler_tpu_torch.solvers.device_sweep import (
+        McpDeviceSweepSolver,
+        QmcpDeviceSweepSolver,
+    )
+
+    batches = [rand_reads_uniform(np.random.default_rng(s), 5000, 30_000, 150)
+               for s in range(3)]
+    host = NativeGreedyMcpSolver()
+    m = 20
+    n0 = sweep.dense_sweep_counts.launches
+    gpu = McpDeviceSweepSolver("cuda")
+    for b in batches:
+        np.testing.assert_array_equal(gpu.solve(m, b), host.solve(m, b))
+        assert gpu.last_stats["engine"] == "dense"
+    win = WindowedMcpSolver("cuda", n_windows=8)
+    np.testing.assert_array_equal(win.solve(m, batches[0]), host.solve(m, batches[0]))
+    assert 1 <= win.last_stats["rounds"] <= 8
+    for b, sel in zip(batches, solve_batch(batches, m, "cuda")):
+        np.testing.assert_array_equal(sel, host.solve(m, b))
+    q = QmcpDeviceSweepSolver("cuda").solve(m, batches[1])
+    assert len(q) == len(host.solve(m, batches[1]))
+    assert sweep.dense_sweep_counts.launches > n0

@@ -16,7 +16,15 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 12, names
+required = {
+    "genome_downsampler_tpu_torch.entry",
+    "genome_downsampler_tpu_torch.ops.sweep",
+    "genome_downsampler_tpu_torch.parallel.windows",
+    "genome_downsampler_tpu_torch.solvers.batched",
+    "genome_downsampler_tpu_torch.solvers.device_sweep",
+}
+assert required <= set(names), sorted(required - set(names))
+assert len(names) >= 17, names
 loaded = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 assert not loaded, loaded
 print("ok", len(names))

@@ -133,8 +133,9 @@ def test_interleaved_pack_call_is_detected(monkeypatch):
 
 def test_registry_names_and_cpu_solvers():
     reg = default_registry()
-    for name in ("mcp-cuda", "quasi-mcp-cuda", "mcp-cuda-blocked", "mcp-cpu",
-                 "quasi-mcp-cpu", "mcp-cpu-py", "qmcp-cpu", "qmcp-lp-cpu", "test"):
+    for name in ("mcp-cuda", "quasi-mcp-cuda", "mcp-cuda-blocked",
+                 "qmcp-sweep-cuda", "mcp-cpu", "quasi-mcp-cpu", "mcp-cpu-py",
+                 "qmcp-cpu", "qmcp-lp-cpu", "test"):
         assert reg.contains(name)
     assert not reg.uses_quality_of_reads("mcp-cuda")
     batch = rand_reads_uniform(np.random.default_rng(1), 500, 3000, 60)
@@ -143,7 +144,9 @@ def test_registry_names_and_cpu_solvers():
     )
 
 
-@pytest.mark.parametrize("name", ["mcp-cuda", "quasi-mcp-cuda", "mcp-cuda-blocked"])
+@pytest.mark.parametrize(
+    "name", ["mcp-cuda", "quasi-mcp-cuda", "mcp-cuda-blocked", "qmcp-sweep-cuda"]
+)
 def test_cuda_names_raise_without_a_card(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
