@@ -41,14 +41,28 @@ package's device code. Phases, each of which raises on failure:
    each read set equal to ``mcp-cpu`` on its sample;
 10. ``qmcp-sweep-cuda`` at config-1: read set equal to the CPU twin
     solver's, count equal to ``mcp-cpu``'s, total MAPQ >= ``mcp-cuda``'s,
-    coverage valid.
+    coverage valid;
+11. kernel A's variants C and B through ``python -m
+    genome_downsampler_tpu_torch.scripts.kernel_variants``'s ``run`` at its
+    default size (1M pairs, 2M reads, over 30,000 bases, n=30,208, L=256,
+    M=1000): each equal to kernel A and to the port's ``sweep_counts`` over
+    the whole row, and to its twin on the first 4,096 positions; kernel A,
+    C and B times side by side, and the twins';
+12. the blocked sweep's ablation: all seven modes equal to their twin at
+    W=4, B=128, L=64; ``full`` equal to kernel A over the 64 whole window
+    rows at 1M reads over 2.5 Mb (S=64, 2.6 GB of rows); the seven modes
+    timed through ``scripts.bench_kernel_ablate``'s ``run`` at its default
+    (6M reads, W=64, B=128, L=256), beside kernel B's time per position,
+    and each equal to its twin on the first blocks of that default.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; each phase prints its wall time. Phases 7-9 also record
 the arguments of the path's last kernel A launch and hold the kernel
 against its twin on them (the head of every row from the path's own
 carries; for the windows also the tail, at the highest addresses of the
-5.1 GB of rows), and time the kernel on the whole launch. Integer results
+5.1 GB of rows), and time the kernel on the whole launch. Kernel times
+are CUDA events, the least of the timed launches after a warm one
+(``scripts.best_ms``); a twin is timed once. Integer results
 must match exactly (tolerance 0). The next-to-last line is a JSON object with
 one entry per kernel; the last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
@@ -71,8 +85,9 @@ C4_READS, C4_GENOME, C4_M, READ_LEN = 10_000_000, 5_000_000, 50, 150
 TAIL_BLOCKS = 4  # blocks per window the plain sweep twin is timed on
 # (pairs, genome, M) of the dense engine's cells, uniform read starts:
 # stand-ins at the size of BASELINE config 0 (a SARS-CoV-2 amplicon BAM) and
-# at the read depth scripts/kernel_variants.py timed kernel A at, and the
-# dense/blocked edge (rows of 256 MiB)
+# deep (1M reads over 29,903 bases, M=1000: half the read depth of
+# scripts/kernel_variants.py, 1M pairs or 2M reads over 30,000 bases, which
+# phase 11 runs), and the dense/blocked edge (rows of 256 MiB)
 C1 = (25_000, 29_903, 100)
 DEEP = (500_000, 29_903, 1000)
 EDGE = (1_000_000, 262_144, 50)
@@ -87,12 +102,15 @@ def log(*a):
 
 def launch_counts():
     """Each kernel's wrapper, which carries its launch count."""
-    from genome_downsampler_tpu_torch.ops import blocked, sweep
+    from genome_downsampler_tpu_torch.ops import ablate, blocked, sweep, variants
 
     return {
         "dense_sweep": sweep.dense_sweep_counts,
         "blocked_sweep": blocked.blocked_sweep_pass,
         "blocked_select": blocked.blocked_selection_pass,
+        "variant_c": variants.sweep_variant_c,
+        "variant_b": variants.sweep_variant_b,
+        "ablate": ablate.blocked_ablate,
     }
 
 
@@ -110,22 +128,6 @@ def expect_launches(got, *launched):
     bad = {k: v for k, v in got.items() if (v >= 1) != (k in launched)}
     if bad:
         raise AssertionError(f"launches {got}: expected only {launched} to run")
-
-
-def cuda_ms(fn, reps=1):
-    """Mean device-timeline milliseconds of ``fn`` over ``reps`` runs."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def max_abs_err(got, ref) -> int:
@@ -167,6 +169,7 @@ def phase_sweep(dev, c4, report):
     from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
     from genome_downsampler_tpu_torch import _native
     from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.scripts import best_ms
 
     errs = []
     # small geometry (the CPU tests' W=4, B=64, L=64)
@@ -206,11 +209,12 @@ def phase_sweep(dev, c4, report):
 
     z = torch.zeros((W, L), dtype=torch.int32, device=dev)
     kw = dict(avail0i=z, auto_target=True, max_coverage=C4_M)
-    full_ms = cuda_ms(lambda: blocked.blocked_sweep_pass(p32, cnt, None, z, z, W, B, L, **kw), 5)
-    tail_ms = cuda_ms(lambda: blocked.blocked_sweep_pass(
-        p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw), 5)
-    plain_ms = cuda_ms(lambda: blocked.blocked_sweep_pass_plain(
-        p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw), 1)
+    full_ms = best_ms(lambda: blocked.blocked_sweep_pass(
+        p32, cnt, None, z, z, W, B, L, **kw), dev)[1]
+    tail_ms = best_ms(lambda: blocked.blocked_sweep_pass(
+        p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw), dev)[1]
+    plain_ms = best_ms(lambda: blocked.blocked_sweep_pass_plain(
+        p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw), dev, 1)[1]
     pos_full = nbw * B
     pos_tail = TAIL_BLOCKS * B
     log(f"  kernel B full config-4 pass: {full_ms:.3f} ms for {pos_full} positions "
@@ -225,6 +229,7 @@ def phase_sweep(dev, c4, report):
         "max_abs_err": max(errs), "ms": tail_ms, "plain_ms": plain_ms,
         "timed_on": f"tail slice: {TAIL_BLOCKS} blocks x {W} windows, auto_target",
         "full_pass_ms": full_ms,
+        "full_pass_ns_per_position": 1e6 * full_ms / pos_full,
     }
 
 
@@ -233,6 +238,7 @@ def phase_select(dev, c4, report):
     import torch
 
     from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.scripts import best_ms
     from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
         _selection_mask,
         pack_bits,
@@ -252,10 +258,11 @@ def phase_select(dev, c4, report):
         raise AssertionError("kernel C disagrees with the argsort engine")
     log(f"  kernel C == plain == argsort engine at config-4 "
         f"({int(got.sum())} selected slots, {rounds} sweep rounds)")
-    ms = cuda_ms(lambda: blocked.blocked_selection_pass(p32, cnt, sel, xwin, W, B, L), 5)
-    plain_ms = cuda_ms(
-        lambda: blocked.blocked_selection_pass_plain(p32, cnt, sel, xwin, W, B, L), 1
-    )
+    ms = best_ms(lambda: blocked.blocked_selection_pass(p32, cnt, sel, xwin, W, B, L),
+                 dev)[1]
+    plain_ms = best_ms(
+        lambda: blocked.blocked_selection_pass_plain(p32, cnt, sel, xwin, W, B, L), dev, 1
+    )[1]
     log(f"  kernel C full config-4 pass: {ms:.3f} ms, plain twin {plain_ms:.3f} ms "
         f"[{report}]")
     return {
@@ -380,32 +387,19 @@ def uniform_batch(pairs, genome, seed=SEED):
     return rand_reads_uniform(np.random.default_rng(seed), pairs, genome, READ_LEN)
 
 
-def timed_once(fn):
-    """``(fn(), device-timeline ms)`` of one run, no warm-up."""
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    out = fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return out, t0.elapsed_time(t1)
-
-
 def kernel_a_vs_plain(what, rows, target, a0, s0, takes=False):
     """Kernel A against its twin on the same inputs; returns (max |err|,
     the twin's ms)."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.scripts import best_ms
 
     L = rows.shape[2]
     got = sweep.dense_sweep_counts(rows, target, a0, s0, L, takes=takes)
     torch.cuda.synchronize()
-    ref, plain_ms = timed_once(lambda: sweep.dense_sweep_counts_plain(
-        rows, target, a0, s0, L, takes=takes))
+    ref, plain_ms = best_ms(lambda: sweep.dense_sweep_counts_plain(
+        rows, target, a0, s0, L, takes=takes), rows.device, 1, warm=False)
     err = max_abs_err(got, ref)
     seeded = bool(a0.any() or s0.any())
     log(f"  kernel A == plain: {what} S={rows.shape[0]} n={rows.shape[1]} "
@@ -443,6 +437,7 @@ def phase_dense_kernel(dev, report):
     import torch
 
     from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.scripts import best_ms
     from genome_downsampler_tpu_torch.solvers.device_sweep import _dense_inputs
 
     errs = []
@@ -477,9 +472,9 @@ def phase_dense_kernel(dev, report):
     z = torch.zeros((1, 256), dtype=torch.int32, device=dev)
     plain_ms = check("config-1", rows, target, z, z, False)
     check("config-1", rows, target, z, z, True)
-    ms = cuda_ms(lambda: sweep.dense_sweep_counts(rows, target, z, z, 256), 5)
-    takes_ms = cuda_ms(
-        lambda: sweep.dense_sweep_counts(rows, target, z, z, 256, takes=True), 5)
+    ms = best_ms(lambda: sweep.dense_sweep_counts(rows, target, z, z, 256), dev)[1]
+    takes_ms = best_ms(
+        lambda: sweep.dense_sweep_counts(rows, target, z, z, 256, takes=True), dev)[1]
 
     # deep 30 kb: the twin checks the first positions, the kernel runs all
     pairs, n, m = DEEP
@@ -489,8 +484,9 @@ def phase_dense_kernel(dev, report):
     full = sweep.dense_sweep_counts(rows, target, z, z, 256)[0]
     head = sweep.dense_sweep_counts(head_r, head_t, z, z, 256)[0]
     errs.append(max_abs_err([full[:, :DEEP_CHECK]], [head]))
-    deep_ms = cuda_ms(lambda: sweep.dense_sweep_counts(rows, target, z, z, 256), 5)
-    deep_head_ms = cuda_ms(lambda: sweep.dense_sweep_counts(head_r, head_t, z, z, 256), 5)
+    deep_ms = best_ms(lambda: sweep.dense_sweep_counts(rows, target, z, z, 256), dev)[1]
+    deep_head_ms = best_ms(lambda: sweep.dense_sweep_counts(head_r, head_t, z, z, 256),
+                           dev)[1]
     log(f"  config-1 ({C1[1]} positions): kernel {ms:.3f} ms "
         f"({1e6 * ms / C1[1]:.1f} ns/position), takes mode {takes_ms:.3f} ms, "
         f"plain twin {plain_ms:.3f} ms  [{report}]")
@@ -545,6 +541,7 @@ def phase_dense_path(dev, report):
     launch, and timed on the whole of it. Returns (kernel A's launches in
     the config-1 run, max |err|, {cell: kernel ms})."""
     from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.scripts import best_ms
     from genome_downsampler_tpu_torch.solvers import device_sweep
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
@@ -564,7 +561,8 @@ def phase_dense_path(dev, report):
         errs.append(kernel_a_vs_plain(
             f"{label} path's launch, head", row_head(rows, DEEP_CHECK),
             row_head(target, DEEP_CHECK), a0, s0, **kw)[0])
-        kernel_ms[label] = cuda_ms(lambda: sweep.dense_sweep_counts(*args, **kw), 3)
+        kernel_ms[label] = best_ms(lambda: sweep.dense_sweep_counts(*args, **kw),
+                                   rows.device, 3)[1]
         log(f"  {label}: kernel A alone on the path's launch (S={rows.shape[0]}, "
             f"n={rows.shape[1]}): {kernel_ms[label]:.3f} ms "
             f"({1e6 * kernel_ms[label] / rows.shape[1]:.1f} ns/position)  [{report}]")
@@ -581,6 +579,7 @@ def phase_windowed(batch, host, report):
 
     from genome_downsampler_tpu_torch.ops import sweep
     from genome_downsampler_tpu_torch.parallel import windows
+    from genome_downsampler_tpu_torch.scripts import best_ms
 
     solver = windows.WindowedMcpSolver("cuda", n_windows=WINDOWS)
     solver.solve(C4_M, batch)  # warm-up
@@ -617,7 +616,8 @@ def phase_windowed(batch, host, report):
     errs.append(max_abs_err([full[0][:, n - T:], full[1], full[2]], ref))
     log(f"  kernel A whole launch == kernel on the first {n - T} positions, then "
         f"plain on the last {T}: S={rows.shape[0]} n={n} L={L}")
-    ms = cuda_ms(lambda: sweep.dense_sweep_counts(rows, target, a0, s0, L), 3)
+    ms = best_ms(lambda: sweep.dense_sweep_counts(rows, target, a0, s0, L),
+                 rows.device, 3)[1]
     log(f"  kernel A alone on one round (S={rows.shape[0]}, n={n}): {ms:.3f} ms "
         f"({1e6 * ms / n:.1f} ns/position)  [{report}]")
     return max(errs), ms
@@ -683,6 +683,158 @@ def phase_qmcp(dev, report):
         raise AssertionError("qmcp-sweep-cuda lost total MAPQ against mcp-cuda")
     log(f"  qmcp-sweep-cuda == CPU twin solver; count {len(sel)} == mcp-cpu; "
         f"total MAPQ {int(q[sel].sum())} >= mcp-cuda's {int(q[mcp].sum())}")
+
+
+def phase_variants(dev, report):
+    """Kernel A's variants through the kernel_variants entry point at its
+    default size, against kernel A and sweep_counts over the whole row; each
+    against its twin on the first DEEP_CHECK positions. Returns their JSON
+    entries."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import sweep, variants
+    from genome_downsampler_tpu_torch.scripts import best_ms, kernel_variants
+
+    reset_launches()
+    torch.cuda.synchronize()
+    res, rows, target = kernel_variants.run(
+        dev, log=lambda *a: log("  " + " ".join(map(str, a))))
+    launches = read_launches()
+    expect_launches(launches, "dense_sweep", "variant_c", "variant_b")
+    if not all(r["match"] for r in res.values()):
+        raise AssertionError("a kernel differs from sweep_counts at the "
+                             "kernel_variants default")
+    a = res["A"]["out"]
+    n, L = rows.shape
+    head_r, head_t = rows[:DEEP_CHECK].contiguous(), target[:DEEP_CHECK].contiguous()
+    z = torch.zeros((1, L), dtype=torch.int32, device=dev)
+    a_head_ms = best_ms(lambda: sweep.dense_sweep_counts(head_r[None], head_t[None],
+                                                         z, z, L), dev)[1]
+    entries = []
+    for key, name, fn, plain, x in (
+        ("C", "variant_c", variants.sweep_variant_c, variants.sweep_variant_c_plain,
+         head_r),
+        ("B", "variant_b", variants.sweep_variant_b, variants.sweep_variant_b_plain,
+         variants.rotate_rows(head_r)),
+    ):
+        got = fn(x, head_t, L)
+        torch.cuda.synchronize()
+        ref, plain_ms = best_ms(lambda: plain(x, head_t, L), dev, 1, warm=False)
+        err = max(max_abs_err([got], [ref]),
+                  max_abs_err([res[key]["out"]], [a]),
+                  max_abs_err([res[key]["out"][:DEEP_CHECK]], [got]))
+        ms = best_ms(lambda: fn(x, head_t, L), dev)[1]
+        log(f"  variant {key} == kernel A == sweep_counts over n={n}; == plain twin "
+            f"on the first {DEEP_CHECK} positions")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "genome_downsampler_tpu_torch/ops/csrc/sweep_variants.cu",
+            "replaces": "scripts/kernel_variants.py:"
+                        + ("31" if key == "C" else "68"),
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
+            "timed_on": f"first {DEEP_CHECK} positions of the kernel_variants "
+                        f"default (L={L})",
+            "row_ms": res[key]["ms"], "kernel_a_row_ms": res["A"]["ms"],
+        })
+    log(f"  whole row, n={n} (least of 5): kernel A {res['A']['ms']:.3f} ms "
+        f"({1e6 * res['A']['ms'] / n:.1f} ns/position), variant C "
+        f"{res['C']['ms']:.3f} ms ({1e6 * res['C']['ms'] / n:.1f}), variant B "
+        f"{res['B']['ms']:.3f} ms ({1e6 * res['B']['ms'] / n:.1f})  [{report}]")
+    log(f"  first {DEEP_CHECK} positions: kernel A {a_head_ms:.3f} ms, variant C "
+        f"{entries[0]['ms']:.3f} ms (twin {entries[0]['plain_ms']:.3f} ms), "
+        f"variant B {entries[1]['ms']:.3f} ms (twin {entries[1]['plain_ms']:.3f} ms)"
+        f"  [{report}]")
+    return entries
+
+
+def ablate_vs_plain(packed, target, W, B, L):
+    """Every mode of the ablation kernel against its twin on the same
+    inputs (``out``, ``availf`` and ``selendf``); returns (max |err|, the
+    twin's ms per mode)."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import ablate
+    from genome_downsampler_tpu_torch.scripts import best_ms
+
+    errs, plain_ms = [], {}
+    for mode in ablate.MODES:
+        got = ablate.blocked_ablate(packed, target, W, B, L, mode)
+        torch.cuda.synchronize()
+        ref, plain_ms[mode] = best_ms(
+            lambda: ablate.blocked_ablate_plain(packed, target, W, B, L, mode),
+            packed.device, 1, warm=False)
+        errs.append(max_abs_err(got, ref))
+    log(f"  ablation == plain twin in all {len(ablate.MODES)} modes: W={W} B={B} "
+        f"L={L}, {packed.shape[0]} blocks")
+    return max(errs), plain_ms
+
+
+def phase_ablate(dev, report, b_ns):
+    """The ablation: every mode against its twin at W=4, B=128, L=64;
+    ``full`` against kernel A over whole window rows at 1M reads; the seven
+    modes timed through the bench_kernel_ablate entry point at its default,
+    and each against its twin on the first TAIL_BLOCKS blocks of it.
+    Returns the kernel's JSON entry."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import ablate, sweep
+    from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.scripts import bench_kernel_ablate as bka
+
+    W, B, L = 64, 128, bka.MAX_SPAN
+    # the CPU tests' geometry: about 3 reads starting per position
+    rng = np.random.default_rng(SEED)
+    start = np.sort(rng.integers(0, 1000 - 64, 3000))
+    end = start + rng.integers(0, 63, 3000)
+    p, t, _ = bka.pack(start, end, 1000, 4, B, 64, 5, dev)
+    errs = [ablate_vs_plain(p, t, 4, B, 64)[0]]
+
+    # full over whole windows at 1M reads against kernel A over their rows
+    start, end, n = bka.problem(1.0)
+    p, t, win = bka.pack(start, end, n, W, B, L, bka.MAX_COVERAGE, dev)
+    out = ablate.blocked_ablate(p, t, W, B, L, "full")[0]
+    rows = bka.window_rows(start, end, win, W, win, L, dev)
+    z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+    errs.append(max_abs_err([out], [sweep.dense_sweep_counts(rows, t, z, z, L)[0]]))
+    log(f"  full == kernel A over the {W} whole window rows at 1M reads (S={W}, "
+        f"n={win}, {rows.numel() * 4 / 1e9:.2f} GB of rows)")
+    del p, t, out, rows
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    torch.cuda.synchronize()
+    res = bka.run(dev, log=lambda *a: log("  " + " ".join(map(str, a))))
+    launches = read_launches()
+    expect_launches(launches, "ablate", "dense_sweep")
+    r = res[(W, B)]
+    errs.append(max_abs_err([r["full"]["out"][:, :r["kernel_a"].shape[1]]],
+                            [r["kernel_a"]]))
+    log(f"  modes at 6M reads, W={W} B={B} (ns per step, one position of {W} "
+        f"windows): " + ", ".join(f"{m} {r[m]['ns_per_step']:.1f}" for m in ablate.MODES)
+        + f"; kernel B full config-4 pass {b_ns:.1f} ns/position (W=32)  [{report}]")
+
+    # every mode, kernel and twin, on the first TAIL_BLOCKS blocks of it
+    p = r["packed"][:TAIL_BLOCKS].contiguous()
+    t = r["target"][:, :TAIL_BLOCKS * B].contiguous()
+    modes_ms = {m: r[m]["ms"] for m in ablate.MODES}
+    del res, r
+    err, plain_ms = ablate_vs_plain(p, t, W, B, L)
+    errs.append(err)
+    ms = best_ms(lambda: ablate.blocked_ablate(p, t, W, B, L, "full"), dev)[1]
+    log(f"  full on the first {TAIL_BLOCKS} blocks (W={W}): kernel {ms:.3f} ms, "
+        f"plain twin {plain_ms['full']:.3f} ms  [{report}]")
+    return {
+        "name": "ablate", "route": "cuda",
+        "source": "genome_downsampler_tpu_torch/ops/csrc/blocked_ablate.cu",
+        "replaces": "scripts/bench_kernel_ablate.py:32",
+        "launches": launches["ablate"], "max_abs_err": max(errs), "ms": ms,
+        "plain_ms": plain_ms["full"],
+        "timed_on": f"mode full, first {TAIL_BLOCKS} blocks of the default "
+                    f"(6M reads, W={W}, B={B}, L={L})",
+        "modes_ms": modes_ms,
+    }
 
 
 def main() -> int:
@@ -775,6 +927,13 @@ def main() -> int:
     dense["max_abs_err"] = max(dense["max_abs_err"], err7, err8, err9)
     phase("[10] qmcp-sweep-cuda at config-1")
     phase_qmcp(dev, report)
+    torch.cuda.empty_cache()
+    phase("[11] kernel A's variants C and B (kernel_variants)")
+    entries += phase_variants(dev, report)
+    phase("[12] the blocked sweep's ablation (bench_kernel_ablate)")
+    b_ns = next(e for e in entries if e["name"] == "blocked_sweep")[
+        "full_pass_ns_per_position"]
+    entries.append(phase_ablate(dev, report, b_ns))
     phase(None)
     log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -42,6 +42,11 @@ _SIGNATURES = {
     # (rows, target, avail0, selend0, out, takes, availf, selendf,
     #  S, n, L, takes_mode, stream)
     "gd_dense_sweep": [_P] * 8 + [_I] * 4 + [_P],
+    # (rows, target, out, n, L, stream)
+    "gd_sweep_variant_c": [_P] * 3 + [_I] * 2 + [_P],
+    "gd_sweep_variant_b": [_P] * 3 + [_I] * 2 + [_P],
+    # (packed, target, out, availf, selendf, nbw, W, cap, B, L, mode, stream)
+    "gd_blocked_ablate": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 
@@ -65,11 +70,11 @@ def _nvcc() -> str:
 
 def build_kernels(force: bool = False) -> Path:
     """Compile ``ops/csrc/*.cu`` unless a library newer than every source
-    exists; returns its path."""
+    and header exists; returns its path."""
     global build_seconds
     out = _BUILD_DIR / _LIB_NAME
     srcs = sorted(_CSRC.glob("*.cu"))
-    newest = max(s.stat().st_mtime for s in srcs)
+    newest = max(s.stat().st_mtime for s in (*srcs, *_CSRC.glob("*.cuh")))
     if not force and out.exists() and out.stat().st_mtime >= newest:
         build_seconds = 0.0
         return out

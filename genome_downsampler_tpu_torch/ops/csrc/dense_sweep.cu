@@ -47,59 +47,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_slots.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using gd::cp_async_commit;
+using gd::cp_async_slots;
+using gd::cp_async_wait;
+using gd::kFull;
+using gd::load_slots;
+
 constexpr int kTgtStage = 256;  // targets staged per refill
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// copy this lane's SS ints of one row (global -> shared), asynchronously
-template <int SS>
-__device__ __forceinline__ void cp_async_slots(int32_t* dst,
-                                               const int32_t* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (SS % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < SS / 4; ++i)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * i),
-                   "l"(src + 4 * i)
-                   : "memory");
-  } else {
-    static_assert(SS == 1 || SS == 2, "SS must be 1, 2 or a multiple of 4");
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-                 "l"(src), "n"(4 * SS)
-                 : "memory");
-  }
-}
-
-// this lane's SS ints of one staged row (shared -> registers)
-template <int SS>
-__device__ __forceinline__ void load_slots(const int32_t* p, int (&a)[SS]) {
-  if constexpr (SS % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < SS / 4; ++i) {
-      const int4 v = reinterpret_cast<const int4*>(p)[i];
-      a[4 * i] = v.x;
-      a[4 * i + 1] = v.y;
-      a[4 * i + 2] = v.z;
-      a[4 * i + 3] = v.w;
-    }
-  } else if constexpr (SS == 2) {
-    const int2 v = *reinterpret_cast<const int2*>(p);
-    a[0] = v.x;
-    a[1] = v.y;
-  } else {
-    a[0] = p[0];
-  }
-}
 
 // in place: a[j] <- sum of the warp's slots >= this lane's slot j (lane l
 // owns slots l*SS..); returns nothing, the row total is lane 0's a[0]
@@ -148,16 +106,13 @@ __global__ void __launch_bounds__(32) dense_sweep_kernel(
 
   // ---- carries in: avail form -> suffix form; cur = sum(selend)
   int F[SS], Se[SS];
-  int cur = 0;
 #pragma unroll
   for (int j = 0; j < SS; ++j) {
     F[j] = avail0[s * L + k0 + j];
     Se[j] = selend0[s * L + k0 + j];
-    cur += Se[j];
   }
   warp_suffix<SS>(F, lane);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) cur += __shfl_xor_sync(kFull, cur, o);
+  int cur = gd::warp_sum<SS>(Se);
 
   // ---- prime the row pipeline: one commit group per position, empty past n
 #pragma unroll 1
@@ -216,17 +171,7 @@ __global__ void __launch_bounds__(32) dense_sweep_kernel(
     const int em = __shfl_sync(kFull, Se[0], 0);
     if (!TAKES && lane == 0) out[s * n + j] = em;
     cur += taken - em;
-    // ---- shift both rings one slot toward k = 0
-    int f_in = __shfl_down_sync(kFull, F[0], 1);
-    int s_in = __shfl_down_sync(kFull, Se[0], 1);
-    if (lane == 31) f_in = s_in = 0;
-#pragma unroll
-    for (int i = 0; i < SS - 1; ++i) {
-      F[i] = F[i + 1];
-      Se[i] = Se[i + 1];
-    }
-    F[SS - 1] = f_in;
-    Se[SS - 1] = s_in;
+    gd::shift_down<SS>(F, Se, lane);  // both rings one slot toward k = 0
   }
   cp_async_wait<0>();
 

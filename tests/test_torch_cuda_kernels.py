@@ -13,7 +13,7 @@ import torch
 
 from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
 from genome_downsampler_tpu_torch import _native
-from genome_downsampler_tpu_torch.ops import blocked, sweep
+from genome_downsampler_tpu_torch.ops import ablate, blocked, sweep, variants
 from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
     BlockedWindowedMcpSolver,
     _cross_window_offsets,
@@ -229,3 +229,72 @@ def test_dense_solvers_cuda_match_host_greedy(cuda):
     q = QmcpDeviceSweepSolver("cuda").solve(m, batches[1])
     assert len(q) == len(host.solve(m, batches[1]))
     assert sweep.dense_sweep_counts.launches > n0
+
+
+@pytest.mark.parametrize("L", [64, 256])
+def test_sweep_variants_match_plain_and_kernel_a(cuda, L):
+    rows, target = _dense_case(1, 4096, L, 6, seed=L)
+    r = torch.tensor(rows[0], device=cuda)
+    t = torch.tensor(target[0], device=cuda)
+    z = torch.zeros((1, L), dtype=torch.int32, device=cuda)
+    ref = sweep.dense_sweep_counts(r[None], t[None], z, z, L)[0][0]
+    rot = variants.rotate_rows(r)
+    n0 = (variants.sweep_variant_c.launches, variants.sweep_variant_b.launches)
+    got_c = variants.sweep_variant_c(r, t, L)
+    got_b = variants.sweep_variant_b(rot, t, L)
+    torch.cuda.synchronize()
+    assert (variants.sweep_variant_c.launches, variants.sweep_variant_b.launches) == (
+        n0[0] + 1, n0[1] + 1)
+    assert torch.equal(got_c, ref) and torch.equal(got_b, ref) and ref.any()
+    assert torch.equal(got_c, variants.sweep_variant_c_plain(r, t, L))
+    assert torch.equal(got_b, variants.sweep_variant_b_plain(rot, t, L))
+
+
+@pytest.mark.parametrize("mode", ablate.MODES)
+@pytest.mark.parametrize("L", [64, 256])
+def test_ablate_kernel_matches_plain(cuda, L, mode):
+    # W=4 windows of 4 * L / 64 blocks, about 3 reads starting per position,
+    # reads of span 1 where each window starts (so noroll emits), every
+    # fifth code moved to span L; L=256 is the default's geometry
+    n = 1000 * L // 64
+    rng = np.random.default_rng(3)
+    start = np.sort(rng.integers(0, n - L, 3 * n))
+    end = start + rng.integers(0, L - 1, 3 * n)
+    one = np.repeat(np.arange(4) * (-(-n // 512) * 128), 2)
+    start, end = np.concatenate([start, one]), np.concatenate([end, one])
+    packed, _, win, n_pad, _ = _native.pack_blocked(start, end, n, 4, 128, L,
+                                                    cap_multiple=128)
+    packed = np.array(packed)
+    sel = (packed >= 0) & (np.arange(packed.size).reshape(packed.shape) % 5 == 0)
+    packed[sel] = (packed[sel] // L) * L + L - 1
+    p = torch.tensor(packed, device=cuda)
+    t = torch.tensor(_native.capped_target(start, end, n_pad, 5).reshape(4, win),
+                     device=cuda)
+    n0 = ablate.blocked_ablate.launches
+    got = ablate.blocked_ablate(p, t, 4, 128, L, mode)
+    torch.cuda.synchronize()
+    assert ablate.blocked_ablate.launches == n0 + 1
+    ref = ablate.blocked_ablate_plain(p, t, 4, 128, L, mode)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert sel.sum() > 10 and (mode not in ("full", "noroll") or ref[0].any())
+
+
+def test_variant_and_ablate_kernels_reject_what_they_do_not_take(cuda):
+    r = torch.zeros((16, 48), dtype=torch.int32, device=cuda)
+    t = torch.zeros(16, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="max_span in"):
+        variants.sweep_variant_c(r, t, 48)
+    with pytest.raises(ValueError, match="max_span in"):
+        variants.sweep_variant_b(r, t, 48)
+    p = torch.full((1, 2, 128), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tile"):
+        ablate.blocked_ablate(p, torch.zeros((2, 512), dtype=torch.int32, device=cuda),
+                              2, 512, 256, "full")
+    # a device that is neither CPU nor CUDA: no silent twin
+    with pytest.raises(ValueError, match="no sweep variant"):
+        variants.sweep_variant_c(torch.zeros((16, 32), dtype=torch.int32, device="meta"),
+                                 t.to("meta"), 32)
+    with pytest.raises(ValueError, match="no ablation kernel"):
+        ablate.blocked_ablate(p.to("meta"), torch.zeros((2, 128), dtype=torch.int32,
+                                                        device="meta"), 2, 128, 64, "full")

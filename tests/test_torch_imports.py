@@ -18,13 +18,17 @@ for name in names:
     importlib.import_module(name)
 required = {
     "genome_downsampler_tpu_torch.entry",
+    "genome_downsampler_tpu_torch.ops.ablate",
     "genome_downsampler_tpu_torch.ops.sweep",
+    "genome_downsampler_tpu_torch.ops.variants",
     "genome_downsampler_tpu_torch.parallel.windows",
+    "genome_downsampler_tpu_torch.scripts.bench_kernel_ablate",
+    "genome_downsampler_tpu_torch.scripts.kernel_variants",
     "genome_downsampler_tpu_torch.solvers.batched",
     "genome_downsampler_tpu_torch.solvers.device_sweep",
 }
 assert required <= set(names), sorted(required - set(names))
-assert len(names) >= 17, names
+assert len(names) >= 22, names
 loaded = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 assert not loaded, loaded
 print("ok", len(names))
