@@ -5,15 +5,17 @@
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``). It imports nothing of JAX and nothing of the JAX
-package's device code. Phases, each of which raises on failure:
+package. Phases, each of which raises on failure:
 
 1. probe: the card (``nvidia-smi`` name and power limit), torch / CUDA
    versions; build the kernels from ``genome_downsampler_tpu_torch/ops/
    csrc`` (one ``nvcc`` per source, in parallel) and report the build time;
 2. kernel B (blocked sweep) == its plain torch twin on the card, on a small
-   geometry and on the config-4 solve's own packed codes (W=32, B=128,
-   L=256), with and without auto_target, a grid offset and seeded carries;
-   time one full config-4 pass and the kernel vs the twin on a tail slice;
+   geometry, on long reads at L=768 (W=4, B=128: two chunks a block) and on
+   the config-4 solve's own packed codes (W=32, B=128, L=256), with and
+   without auto_target, a grid offset and seeded carries; time one full
+   config-4 pass (ns per position beside its bound) and the kernel vs the
+   twin on a tail slice;
 3. kernel C (selection) == its twin == the argsort engine, at config-4;
 4. the main path at config-4 scale (10M reads of 150 bp, uniform starts
    over 5 Mb, M=50: 300x -> 50x) through ``default_registry().get(
@@ -63,16 +65,34 @@ carries; for the windows also the tail, at the highest addresses of the
 5.1 GB of rows), and time the kernel on the whole launch. Kernel times
 are CUDA events, the least of the timed launches after a warm one
 (``scripts.best_ms``); a twin is timed once. Integer results
-must match exactly (tolerance 0). The next-to-last line is a JSON object with
-one entry per kernel; the last line is
+must match exactly (tolerance 0). Each kernel's ``bound_ms`` is computed
+from the inputs it was timed on (``bound``: bytes read and written once
+over the memory rate, or int32 operations over the int32 rate, the
+larger); no single PyTorch call computes any of them, so ``library_ms`` is
+null. The output ends with three lines: a JSON object with one entry per
+kernel, the card's name and power limit, and
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing neither line, without a CUDA device or outside the repository.
+
+    python3 chip_smoke.py --against OTHER.cu [--against OTHER2.cu ...]
+
+holds kernel B against other versions of ``blocked_sweep.cu`` with the same
+C entry (an earlier commit's, written out with ``git show
+<commit>:genome_downsampler_tpu_torch/ops/csrc/blocked_sweep.cu``): each is
+built into its own library under ``build/kernel_b_against/`` beside the
+port's kernels, all with ``-Xptxas -v`` (registers and spills per
+instantiation are printed); phases 1 and 2 run, then each version is held
+bit-equal to the port's on the config-4 full pass and tail slice from zero
+and seeded carries, and the two are timed in turns (other, port, port,
+other). It ends with the turns' JSON object instead of the three lines.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -94,10 +114,39 @@ EDGE = (1_000_000, 262_144, 50)
 DEEP_CHECK = 4096  # positions per row the plain twin checks (S <= 8)
 WIN_CHECK = 2048  # positions per window row the twin checks, head and tail
 WINDOWS = 32
+# where --against builds the other versions of kernel B (git-ignored)
+AGAINST_DIR = ROOT / "build" / "kernel_b_against"
+# bound_ms: the card's peaks (NVIDIA H100 SXM data sheet; the int32 rate
+# from the Hopper white paper: 64 int32 lanes per SM, 132 SMs, 1.98 GHz
+# boost clock); every kernel here is integer work
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 ops per ring slot per position of the sweep step (kernels A and B,
+# the variants, the ablation): the arrival add, deficit - G, the clip's max
+# and min, F - G, the selend add, min(taken, F) and F -= (G, the next slot's
+# F, is a register read or a shuffle, not arithmetic)
+SWEEP_OPS = 8
+# per selected-or-not read of kernel C: its start and end from the code,
+# the bucket's rank offset, the quota gather, the compare, the store
+SELECT_OPS = 8
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def bound(ops, nbytes):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory
+    rate and the int32 operations over the int32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sweep_bound(codes, W, positions, L, extra_bytes):
+    """Kernel B's (or the ablation's) bound: each code read once, the
+    emitted counts and the carries written once, SWEEP_OPS per slot."""
+    nbytes = 4 * (codes + W * positions + 6 * W * L) + extra_bytes
+    return bound(SWEEP_OPS * W * positions * L, nbytes)
 
 
 def launch_counts():
@@ -146,7 +195,7 @@ def max_abs_err(got, ref) -> int:
 def config4_batch():
     import numpy as np
 
-    from genome_downsampler_tpu.core.readbatch import ReadBatch
+    from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
 
     rng = np.random.default_rng(SEED)
     starts = rng.integers(0, C4_GENOME - READ_LEN, C4_READS, dtype=np.int64)
@@ -166,7 +215,7 @@ def phase_sweep(dev, c4, report):
     import numpy as np
     import torch
 
-    from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
+    from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
     from genome_downsampler_tpu_torch import _native
     from genome_downsampler_tpu_torch.ops import blocked
     from genome_downsampler_tpu_torch.scripts import best_ms
@@ -183,6 +232,17 @@ def phase_sweep(dev, c4, report):
                           device=dev), 4, 64, 64)
     cases = [(small, False, 0, False), (small, True, 0, False),
              (small, True, 2, True), (small, False, 1, True)]
+    # long reads at the largest L (spans up to 700 bp, W=4, B=128, L=768:
+    # the kernel cuts each block in two chunks of 64 positions)
+    n = 4 * 6 * 128
+    start = np.sort(rng.integers(0, n - 768, 2 * n))
+    end = start + rng.integers(0, 700, 2 * n)
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, 4, 128, 768,
+                                                         cap_multiple=128)
+    long_ = (torch.tensor(packed, device=dev), torch.tensor(counts, device=dev),
+             torch.tensor(_native.capped_target(start, end, n_pad, 40).reshape(4, win),
+                          device=dev), 4, 128, 768)
+    cases += [(long_, True, 0, False), (long_, False, 2, True), (long_, True, 1, True)]
     # config-4: the solve's own packed codes
     p32, cnt, tgt4, W, B, L = c4["p32"], c4["counts"], c4["target"], c4["W"], c4["B"], c4["L"]
     nbw = p32.shape[0]
@@ -217,20 +277,121 @@ def phase_sweep(dev, c4, report):
         p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw), dev, 1)[1]
     pos_full = nbw * B
     pos_tail = TAIL_BLOCKS * B
+    full_bound, _ = sweep_bound(int(cnt.sum()), W, pos_full, L, 4 * cnt.numel())
+    tail_bound, tail_by = sweep_bound(int(cnt[tail:].sum()), W, pos_tail, L,
+                                      4 * cnt[tail:].numel())
     log(f"  kernel B full config-4 pass: {full_ms:.3f} ms for {pos_full} positions "
-        f"x {W} windows ({1e6 * full_ms / pos_full:.1f} ns/position)")
+        f"x {W} windows ({1e6 * full_ms / pos_full:.1f} ns/position); bound "
+        f"{full_bound:.4f} ms ({1e6 * full_bound / pos_full:.2f} ns/position, "
+        f"{SWEEP_OPS} int32 ops per slot)  [{report}]")
     log(f"  tail slice ({pos_tail} positions x {W} windows): kernel {tail_ms:.3f} ms "
         f"({1e6 * tail_ms / pos_tail:.1f} ns/position), plain twin {plain_ms:.3f} ms "
-        f"({1e6 * plain_ms / pos_tail:.1f} ns/position)  [{report}]")
+        f"({1e6 * plain_ms / pos_tail:.1f} ns/position); bound {tail_bound:.4f} ms  "
+        f"[{report}]")
     return {
         "name": "blocked_sweep", "route": "cuda",
         "source": "genome_downsampler_tpu_torch/ops/csrc/blocked_sweep.cu",
         "replaces": "genome_downsampler_tpu/ops/pallas_blocked.py:383",
         "max_abs_err": max(errs), "ms": tail_ms, "plain_ms": plain_ms,
+        "bound_ms": tail_bound, "bound_by": tail_by, "library_ms": None,
         "timed_on": f"tail slice: {TAIL_BLOCKS} blocks x {W} windows, auto_target",
         "full_pass_ms": full_ms,
         "full_pass_ns_per_position": 1e6 * full_ms / pos_full,
+        "full_pass_bound_ms": full_bound,
     }
+
+
+def start_against_builds(paths):
+    """Start one ``nvcc -shared`` per other version of kernel B's source and
+    one ``nvcc -c`` of the port's, all with ``-Xptxas -v``; returns
+    ``{label: (command, process)}``."""
+    from genome_downsampler_tpu_torch.ops import build
+
+    AGAINST_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = build._nvcc()
+    csrc = ROOT / "genome_downsampler_tpu_torch" / "ops" / "csrc"
+    flags = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc)]
+    cmds = {"port": [*flags, "-c", "-o", str(AGAINST_DIR / "port.o"),
+                     str(csrc / "blocked_sweep.cu")]}
+    for i, path in enumerate(paths):
+        cmds[path] = [*flags, "-shared", "-o", str(AGAINST_DIR / f"lib{i}.so"), path]
+    return {k: (c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+            for k, c in cmds.items()}
+
+
+def finish_against_builds(procs):
+    """Wait for ``start_against_builds``; log each source's registers and
+    spills per instantiation (S, auto_target); returns ``{path: library}``."""
+    import ctypes
+
+    from genome_downsampler_tpu_torch.ops import build
+
+    libs = {}
+    for label, (cmd, proc) in procs.items():
+        txt = proc.communicate()[0]
+        if proc.returncode:
+            raise build.KernelBuildError(f"{' '.join(cmd)}\n{txt}")
+        inst = re.findall(r"blocked_sweep_kernelILi(\d+)ELb(\d)E.*?(\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", txt,
+                          re.S)
+        log(f"  {label}: " + "; ".join(
+            f"S={s_} auto={a}: {r} registers, spill {st}/{ld} bytes"
+            for s_, a, st, ld, r in inst))
+        if label != "port":
+            lib = ctypes.CDLL(str(cmd[cmd.index("-o") + 1]))
+            lib.gd_blocked_sweep.restype = ctypes.c_int
+            lib.gd_blocked_sweep.argtypes = build._SIGNATURES["gd_blocked_sweep"]
+            libs[label] = lib
+    return libs
+
+
+def phase_turns(dev, c4, libs, report):
+    """Kernel B against other versions of its source: bit-equal on the
+    config-4 full pass and tail slice, from zero and seeded carries, then
+    timed in turns (other, port, port, other). Returns ``{path: {"other
+    full": [ms, ms], "port full": ..., "other tail": ..., "port tail":
+    ...}}``."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import build
+    from genome_downsampler_tpu_torch.scripts import best_ms
+
+    p32, cnt, W, B, L = c4["p32"], c4["counts"], c4["W"], c4["B"], c4["L"]
+    nbw, _, cap = p32.shape
+    tail = nbw - TAIL_BLOCKS
+    port = build.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib, off, carries):  # one auto-target pass, not counted
+        out = [torch.empty((W, (nbw - off) * B), dtype=torch.int32, device=dev)]
+        out += [torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)]
+        build.check("gd_blocked_sweep", lib.gd_blocked_sweep(
+            cnt.data_ptr(), p32.data_ptr(), None, *(c.data_ptr() for c in carries),
+            *(o.data_ptr() for o in out), nbw, W, cap, B, L, off, 1, C4_M, stream))
+        return out
+
+    g = torch.Generator().manual_seed(SEED)
+    seeded = [torch.randint(0, 4, (W, L), generator=g, dtype=torch.int32).to(dev)
+              for _ in range(3)]
+    zero = [torch.zeros((W, L), dtype=torch.int32, device=dev)] * 3
+    positions = {"full": nbw * B, "tail": TAIL_BLOCKS * B}
+    res = {}
+    for path, lib in libs.items():
+        for off in (0, tail):
+            for carries in (zero, seeded):
+                max_abs_err(run(lib, off, carries), run(port, off, carries))
+        log(f"  {path} == port: full pass and tail slice, zero and seeded carries")
+        times = res[path] = {}
+        for turn, (name, which) in enumerate((("other", lib), ("port", port),
+                                              ("port", port), ("other", lib))):
+            for what, off in (("full", 0), ("tail", tail)):
+                ms = best_ms(lambda: run(which, off, zero), dev)[1]
+                times.setdefault(f"{name} {what}", []).append(ms)
+                log(f"  turn {turn} {name} ({path if which is lib else 'port'}) {what}: "
+                    f"{ms:.4f} ms, {1e6 * ms / positions[what]:.2f} ns/position  "
+                    f"[{report}]")
+    return res
 
 
 def phase_select(dev, c4, report):
@@ -263,13 +424,18 @@ def phase_select(dev, c4, report):
     plain_ms = best_ms(
         lambda: blocked.blocked_selection_pass_plain(p32, cnt, sel, xwin, W, B, L), dev, 1
     )[1]
-    log(f"  kernel C full config-4 pass: {ms:.3f} ms, plain twin {plain_ms:.3f} ms "
-        f"[{report}]")
+    codes = int(cnt.sum())
+    bound_ms, bound_by = bound(
+        SELECT_OPS * codes,
+        4 * (codes + cnt.numel() + sel.numel() + xwin.numel()) + got.numel())
+    log(f"  kernel C full config-4 pass: {ms:.3f} ms, plain twin {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by})  [{report}]")
     return {
         "name": "blocked_select", "route": "cuda",
         "source": "genome_downsampler_tpu_torch/ops/csrc/blocked_select.cu",
         "replaces": "genome_downsampler_tpu/ops/pallas_blocked.py:704",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "timed_on": f"full config-4 pass: {p32.shape[0]} blocks x {W} windows",
     }
 
@@ -279,7 +445,7 @@ def phase_main_path(dev, batch, report):
     import numpy as np
     import torch
 
-    from genome_downsampler_tpu.solvers.native_greedy import NativeGreedyMcpSolver
+    from genome_downsampler_tpu_torch.solvers.native_greedy import NativeGreedyMcpSolver
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
     reg = default_registry()
@@ -339,10 +505,10 @@ def phase_cli(report):
     30 kb), mcp-cuda --windows 4 and mcp-cpu."""
     import numpy as np
 
-    from genome_downsampler_tpu.config import BamApiConfig
-    from genome_downsampler_tpu.io.bam import read_bam
-    from genome_downsampler_tpu.testing.bam_writer import write_test_bam_fast
-    from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
+    from genome_downsampler_tpu_torch.config import BamApiConfig
+    from genome_downsampler_tpu_torch.io.bam import read_bam
+    from genome_downsampler_tpu_torch.testing.bam_writer import write_test_bam_fast
+    from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 
     rng = np.random.default_rng(SEED)
     batch = rand_reads_uniform(rng, 100_000, 30_000, 150)
@@ -382,7 +548,7 @@ def phase_cli(report):
 def uniform_batch(pairs, genome, seed=SEED):
     import numpy as np
 
-    from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
+    from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 
     return rand_reads_uniform(np.random.default_rng(seed), pairs, genome, READ_LEN)
 
@@ -430,6 +596,12 @@ def kernel_a_calls(module):
         yield calls
     finally:
         module.dense_sweep_counts = sweep.dense_sweep_counts
+
+
+def dense_bound(S, n, L):
+    """Kernel A's (or a variant's) bound on S rows of n positions: the rows
+    and targets read once, the counts written once, SWEEP_OPS per slot."""
+    return bound(SWEEP_OPS * S * n * L, 4 * (S * n * L + 2 * S * n))
 
 
 def phase_dense_kernel(dev, report):
@@ -493,11 +665,14 @@ def phase_dense_kernel(dev, report):
     log(f"  deep 30 kb ({DEEP[1]} positions): kernel {deep_ms:.3f} ms "
         f"({1e6 * deep_ms / DEEP[1]:.1f} ns/position); first {DEEP_CHECK} positions: "
         f"kernel {deep_head_ms:.3f} ms, plain twin {deep_plain_ms:.3f} ms  [{report}]")
+    bound_ms, bound_by = dense_bound(1, C1[1], 256)
+    log(f"  config-1 bound {bound_ms:.4f} ms ({bound_by})  [{report}]")
     return {
         "name": "dense_sweep", "route": "cuda",
         "source": "genome_downsampler_tpu_torch/ops/csrc/dense_sweep.cu",
         "replaces": "genome_downsampler_tpu/ops/pallas_sweep.py:55",
         "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "timed_on": f"config-1: S=1, n={C1[1]}, L=256",
         "takes_ms": takes_ms, "deep_30kb_ms": deep_ms,
         "deep_head_ms": deep_head_ms, "deep_head_plain_ms": deep_plain_ms,
@@ -732,7 +907,8 @@ def phase_variants(dev, report):
             "replaces": "scripts/kernel_variants.py:"
                         + ("31" if key == "C" else "68"),
             "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": plain_ms, "library_ms": None,
+            **dict(zip(("bound_ms", "bound_by"), dense_bound(1, DEEP_CHECK, L))),
             "timed_on": f"first {DEEP_CHECK} positions of the kernel_variants "
                         f"default (L={L})",
             "row_ms": res[key]["ms"], "kernel_a_row_ms": res["A"]["ms"],
@@ -830,14 +1006,22 @@ def phase_ablate(dev, report, b_ns):
         "source": "genome_downsampler_tpu_torch/ops/csrc/blocked_ablate.cu",
         "replaces": "scripts/bench_kernel_ablate.py:32",
         "launches": launches["ablate"], "max_abs_err": max(errs), "ms": ms,
-        "plain_ms": plain_ms["full"],
+        "plain_ms": plain_ms["full"], "library_ms": None,
+        **dict(zip(("bound_ms", "bound_by"), sweep_bound(
+            int((p >= 0).sum()), W, TAIL_BLOCKS * B, L, 4 * t.numel()))),
         "timed_on": f"mode full, first {TAIL_BLOCKS} blocks of the default "
                     f"(6M reads, W={W}, B={B}, L={L})",
         "modes_ms": modes_ms,
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
+    ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
+                    help="time kernel B against another version of its source, "
+                         "in turns (phases 1 and 2 only); may repeat")
+    args = ap.parse_args(argv)
+
     import numpy as np
     import torch
 
@@ -870,10 +1054,12 @@ def main() -> int:
     log(f"  card: {report}")
     log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    against = start_against_builds(args.against) if args.against else None
     build.build_kernels(force=True)
     log(f"  kernels built from source in {build.build_seconds:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)}, one process per source)")
     build.load_kernels()
+    libs = finish_against_builds(against) if against else {}
 
     t0 = time.perf_counter()
     batch = config4_batch()
@@ -903,6 +1089,13 @@ def main() -> int:
 
     phase("[2] kernel B (blocked sweep) vs plain twin")
     entries = [phase_sweep(dev, c4, report)]
+    if libs:
+        phase("[2b] kernel B against other versions of its source, in turns")
+        turns = phase_turns(dev, c4, libs, report)
+        phase(None)
+        print(json.dumps({"kernel_b_turns": turns, "blocked_sweep": entries[0],
+                          "card": report}))
+        return 0
     phase("[3] kernel C (selection) vs plain twin and argsort engine")
     entries.append(phase_select(dev, c4, report))
     del c4

@@ -1,16 +1,16 @@
-"""ctypes bindings to the shared host library ``_bamio.so``.
+"""ctypes bindings to the port's host library (``io/csrc/*.cpp``).
 
-The C++ packers, capped-coverage histogram and bit test are shared with the
-JAX package (``genome_downsampler_tpu/io/csrc/greedy.cpp``, built by
-``genome_downsampler_tpu.io.build.build_bamio``); this module binds the same
-symbols without importing the JAX modules that also bind them.
+The library is compiled from the port's own sources by
+``io.build.build_bamio`` into ``build/gd_host/`` and bound once, by
+``host_lib``, with every entry point's signature: the packers,
+capped-coverage histogram, bit test and reconstruct wrapped here, the BAM
+engine (``io.bam``) and the host solvers (``solvers.native_greedy``,
+``solvers.native_mcmf``).
 
 The pack outputs are ZERO-COPY views of process-lifetime C arenas: any
-later pack call in the same process (from this package or from the JAX
-package) silently reuses that memory. ``arena_generation`` lets a consumer
-that holds a view across other work check that no pack call of this
-package happened in between; a caller mixing both packages in one process
-copies the first result before the second pack call.
+later pack call in the same process silently reuses that memory.
+``arena_generation`` lets a consumer that holds a view across other work
+check that no pack call happened in between.
 """
 
 from __future__ import annotations
@@ -19,46 +19,90 @@ import ctypes
 
 import numpy as np
 
-from genome_downsampler_tpu.io.build import build_bamio
+from genome_downsampler_tpu_torch.io.build import build_bamio
 
+_I64 = ctypes.c_int64
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U16P = ctypes.POINTER(ctypes.c_uint16)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 
+
+class GdReadResult(ctypes.Structure):
+    """``GdReadResult`` of ``io/csrc/bamio.cpp``: one BAM read's arrays,
+    owned by the library until ``gd_free_read_result``."""
+
+    _fields_ = [
+        ("bam_id", _I64P),
+        ("start", _I32P),
+        ("end", _I32P),
+        ("quality", _I32P),
+        ("seq_length", _I32P),
+        ("is_first", _U8P),
+        ("in_single_amplicon", _U8P),
+        ("contig", _I32P),
+        ("n_reads", _I64),
+        ("filtered_out", _I64P),
+        ("n_filtered_out", _I64),
+        ("ref_genome_length", _I64),
+        ("contig_lengths", _I64P),
+        ("n_contigs", _I64),
+        ("total_records", _I64),
+        ("min_mapq_seen", _I64),
+        ("max_mapq_seen", _I64),
+        ("unmatched_start", _I64P),
+        ("unmatched_end", _I64P),
+        ("unmatched_mate_pos", _I64P),
+        ("n_unmatched", _I64),
+        ("error", ctypes.c_char * 256),
+    ]
+
+
+_PACK = [_I64P, _I64P] + [_I64] * 8
+_RESULT = ctypes.POINTER(GdReadResult)
+_READ = [ctypes.c_char_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_uint32,
+         ctypes.c_int, _I64P, _I64P, _I64]
+_WRITE = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, _I64P, _I64,
+          ctypes.c_char_p]
+_FLOWS = [_I64P] * 4 + [_I64] * 3 + [_I64P]
+# name: (restype, argtypes)
+_SIGNATURES = {
+    "gd_pack_flat_direct": (_I64, _PACK + [
+        ctypes.POINTER(_U16P), ctypes.POINTER(_I32P), _I64P, _I64P,
+        ctypes.POINTER(_I64P)]),
+    "gd_pack_blocked": (_I64, _PACK + [
+        ctypes.POINTER(_I32P), ctypes.POINTER(_I32P), _I64P, _I64P,
+        ctypes.POINTER(_I64P)]),
+    "gd_mask_select": (_I64, [_U8P, _I64P, _I64, _U8P]),
+    "gd_capped_target": (_I64, [_I64P, _I64P, _I64, _I64, _I64, _I32P]),
+    "gd_reconstruct": (_I64, [_I64P, _I64P, _I64, _I64P, _I64, _U8P]),
+    "gd_read_bam": (ctypes.c_int, _READ + [_RESULT]),
+    "gd_read_bam_region": (ctypes.c_int, _READ + [_I64] * 3 + [ctypes.c_int32, _RESULT]),
+    "gd_free_read_result": (None, [_RESULT]),
+    "gd_write_bam": (_I64, _WRITE),
+    "gd_write_bam_voffsets": (_I64, _WRITE),
+    "gd_greedy_mcp": (_I64, [_I64P, _I64P, _I64, _I64, _I64, _I64P,
+                             ctypes.POINTER(_I64P)]),
+    "gd_qmcp_mcmf": (_I64, [_I64P] * 3 + [_I64] * 3 + [ctypes.POINTER(_I64P)]),
+    "gd_qmcp_mcmf_flows": (_I64, _FLOWS),
+    "gd_qmcp_mcmf_convex": (_I64, _FLOWS),
+    "gd_free_i64": (None, [_I64P]),
+}
+
 _lib = None
 _arena_gen = 0
 
 
-def _load():
+def host_lib():
+    """The port's host library, built at first use, loaded and bound once
+    per process."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_bamio()))
-        pack_args = [
-            _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64,
-        ]
-        lib.gd_pack_flat_direct.restype = ctypes.c_int64
-        lib.gd_pack_flat_direct.argtypes = pack_args + [
-            ctypes.POINTER(_U16P), ctypes.POINTER(_I32P),
-            _I64P, _I64P, ctypes.POINTER(_I64P),
-        ]
-        lib.gd_pack_blocked.restype = ctypes.c_int64
-        lib.gd_pack_blocked.argtypes = pack_args + [
-            ctypes.POINTER(_I32P), ctypes.POINTER(_I32P),
-            _I64P, _I64P, ctypes.POINTER(_I64P),
-        ]
-        lib.gd_mask_select.restype = ctypes.c_int64
-        lib.gd_mask_select.argtypes = [_U8P, _I64P, ctypes.c_int64, _U8P]
-        lib.gd_capped_target.restype = ctypes.c_int64
-        lib.gd_capped_target.argtypes = [
-            _I64P, _I64P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, _I32P,
-        ]
-        lib.gd_reconstruct.restype = ctypes.c_int64
-        lib.gd_reconstruct.argtypes = [
-            _I64P, _I64P, ctypes.c_int64, _I64P, ctypes.c_int64, _U8P,
-        ]
+        for name, (restype, argtypes) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _lib = lib
     return _lib
 
@@ -88,7 +132,7 @@ def pack_flat_direct(start, end, n, n_windows, block, max_span,
     W, B, L = n_windows, block, max_span
     if B * L > 1 << 16:
         raise ValueError("codes exceed uint16; use pack_blocked")
-    lib = _load()
+    lib = host_lib()
     s, e = _i64(start), _i64(end)
     p_flat, p_counts, p_slots = _U16P(), _I32P(), _I64P()
     win, cap = ctypes.c_int64(), ctypes.c_int64()
@@ -116,7 +160,7 @@ def pack_blocked(start, end, n, n_windows, block, max_span,
     Returns ``(packed, counts[nbw, W], win, n_pad, slots[R])``, C-arena
     views."""
     W, B, L = n_windows, block, max_span
-    lib = _load()
+    lib = host_lib()
     s, e = _i64(start), _i64(end)
     p_packed, p_counts, p_slots = _I32P(), _I32P(), _I64P()
     win, cap = ctypes.c_int64(), ctypes.c_int64()
@@ -139,7 +183,7 @@ def pack_blocked(start, end, n, n_windows, block, max_span,
 def mask_select(bits: np.ndarray, slots: np.ndarray) -> np.ndarray:
     """Indices of the reads whose slot bit is set in the little-endian
     ``bits`` (threaded C bit test)."""
-    lib = _load()
+    lib = host_lib()
     b = np.ascontiguousarray(bits, np.uint8)
     sl = _i64(slots)
     if sl.size and int(sl.max()) >= 8 * b.shape[0]:
@@ -155,7 +199,7 @@ def mask_select(bits: np.ndarray, slots: np.ndarray) -> np.ndarray:
 def capped_target(start, end, n_pad: int, max_coverage: int) -> np.ndarray:
     """``min(coverage, M)`` per base as int32[n_pad] (threaded C
     histogram)."""
-    lib = _load()
+    lib = host_lib()
     s, e = _i64(start), _i64(end)
     out = np.empty(n_pad, np.int32)
     rc = lib.gd_capped_target(
@@ -171,7 +215,7 @@ def reconstruct(start, end, sel_per_end) -> np.ndarray:
     """Read indices for per-end selected counts: in each end bucket the
     first ``sel_per_end[e]`` reads by (start, index) (threaded C counting
     sort, O(R + n))."""
-    lib = _load()
+    lib = host_lib()
     s, e, spe = _i64(start), _i64(end), _i64(sel_per_end)
     mask = np.empty(s.shape[0], np.uint8)
     total = lib.gd_reconstruct(

@@ -7,7 +7,7 @@
 
 The arguments, the ``test`` subcommand and the flow (read the BAM, solve
 contig by contig, add mates, write) are those of the JAX package's CLI,
-whose parser and test runner are reused; the solvers come from this
+whose parser and test runner are copied here; the solvers come from this
 package's registry (``*-cuda`` names). ``--windows N`` (N > 1) runs
 ``WindowedMcpSolver`` on the card and is accepted only with ``mcp-cuda`` /
 ``quasi-mcp-cuda``. ``--sharded`` and ``--profile-dir`` are not ported yet
@@ -16,6 +16,7 @@ and are refused.
 
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 from pathlib import Path
@@ -23,13 +24,105 @@ from typing import List, Optional
 
 import numpy as np
 
-from genome_downsampler_tpu.cli.main import build_parser, build_test_parser, run_test
-from genome_downsampler_tpu.config import AmpliconBehaviour, BamApiConfig
-from genome_downsampler_tpu.solvers.base import SpanGuard
-from genome_downsampler_tpu.utils.logging import get_logger, set_verbosity
-from genome_downsampler_tpu_torch.solvers.registry import default_registry
+from genome_downsampler_tpu_torch.config import AmpliconBehaviour, BamApiConfig
+from genome_downsampler_tpu_torch.solvers.base import SpanGuard
+from genome_downsampler_tpu_torch.solvers.registry import (
+    DEFAULT_SOLVER_NAME,
+    default_registry,
+)
+from genome_downsampler_tpu_torch.utils.logging import get_logger, set_verbosity
 
-_log = get_logger("torch.cli")
+_log = get_logger("cli")
+
+
+def build_parser(registry) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="genome-downsampler",
+        description="GPU genomic read downsampling to a maximum per-base "
+        "coverage.",
+    )
+    p.add_argument("input", nargs="?", metavar="INPUT_FILEPATH",
+                   help=".bam input file path. Required option.")
+    p.add_argument("max_coverage", nargs="?", type=int, metavar="MAX_COVERAGE",
+                   help="Maximum coverage per reference genome's base pair index.")
+    p.add_argument("-o", "--output", type=Path,
+                   help='.bam output file path. Default is "output.bam" in '
+                        "input's directory.")
+    p.add_argument("-a", "--algorithm", default=DEFAULT_SOLVER_NAME,
+                   choices=registry.get_names(),
+                   help=f'Algorithm to use. Default is "{DEFAULT_SOLVER_NAME}"')
+    p.add_argument("-b", "--bed", type=Path,
+                   help=".bed amplicon bounds specification.")
+    p.add_argument("-t", "--tsv", type=Path,
+                   help=".tsv pairing of .bed amplicon primers.")
+    p.add_argument("-p", "--preprocessing-out", type=Path,
+                   help=".bam output for reads filtered out during "
+                        "preprocessing (debugging).")
+    p.add_argument("-l", "--min-length", type=int, default=90,
+                   help="Minimal sequence length. Default is 90.")
+    p.add_argument("-q", "--min-mapq", type=int, default=30,
+                   help="Minimal MAPQ value. Default is 30.")
+    p.add_argument("-@", "--threads", type=int, default=2, dest="threads",
+                   help="Thread count for BAM read/write.")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="Execute with additional logging.")
+    p.add_argument("--profile-dir", type=Path, default=None,
+                   help="Profiler trace directory (not ported yet; refused).")
+    p.add_argument("--windows", type=int, default=1,
+                   help="Shard the genome into this many coordinate windows "
+                        "solved in parallel on the card (mcp-cuda/"
+                        "quasi-mcp-cuda only; the result stays bit-identical "
+                        "to one window).")
+    p.add_argument("--sharded", action="store_true",
+                   help="Host-sharded multi-process pipeline (not ported "
+                        "yet; refused).")
+    p.add_argument("--halo", type=int, default=2000,
+                   help="Sharded-mode window overlap (with --sharded).")
+    return p
+
+
+def build_test_parser(registry) -> argparse.ArgumentParser:
+    t = argparse.ArgumentParser(
+        prog="genome-downsampler test",
+        description="Run solver correctness tests.",
+    )
+    t.add_argument("-a", "--algorithms", nargs="*", default=[],
+                   choices=registry.get_names(),
+                   help="Algorithms to test (default: all).")
+    t.add_argument("-t", "--tests", nargs="*", default=[],
+                   help="Testers to run (default: all).")
+    t.add_argument("-o", "--outputs-dir", type=Path,
+                   help="Directory for per-test .cov outputs.")
+    t.add_argument("--scale", type=float, default=1.0,
+                   help="Fixture size multiplier (1.0 = reference-size, 1M pairs).")
+    t.add_argument("-v", "--verbose", action="store_true")
+    return t
+
+
+def run_test(args, registry) -> int:
+    from genome_downsampler_tpu_torch.testing.coverage_tester import (
+        TESTER_NAMES,
+        get_tester,
+    )
+
+    solvers = args.algorithms or registry.get_names()
+    testers = args.tests or TESTER_NAMES
+    outputs_dir = args.outputs_dir
+    if outputs_dir and not outputs_dir.exists():
+        _log.error("Directory: %s does not exist!", outputs_dir)
+        return 1
+    for tester_name in testers:
+        tester = get_tester(tester_name, scale=args.scale)
+        _log.info("Running test %s", tester_name)
+        for solver_name in solvers:
+            _log.info("\ton algorithm %s", solver_name)
+            out = None
+            if outputs_dir:
+                out = outputs_dir / tester_name / solver_name
+                out.mkdir(parents=True, exist_ok=True)
+            tester.test(registry.get(solver_name), out)
+            _log.info("\t\t PASSED")
+    return 0
 
 
 def run_downsample(args, registry) -> int:
@@ -84,7 +177,7 @@ def run_downsample(args, registry) -> int:
     else:
         solver = registry.get(args.algorithm)
 
-    from genome_downsampler_tpu.io.bam import BamReader
+    from genome_downsampler_tpu_torch.io.bam import BamReader
 
     reader = BamReader(input_path, config)
     batch = reader.get_batch()

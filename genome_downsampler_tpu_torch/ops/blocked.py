@@ -33,9 +33,12 @@ import torch
 
 from genome_downsampler_tpu_torch.ops import build
 
-# largest block the CUDA sweep kernel stages targets for, and its L values
+# largest block the CUDA sweep kernel takes, its L values, and the most
+# reads of one window that may start at one position (its arrival counts
+# are uint16)
 _CUDA_MAX_BLOCK = 256
 _CUDA_SPANS = (32, 64, 128, 256, 384, 512, 640, 768)
+_CUDA_MAX_STARTS = 65535
 
 
 def expand_flat_codes(flat: torch.Tensor, counts: torch.Tensor, nbw: int,
@@ -104,6 +107,14 @@ def _arrival_rows(codes: torch.Tensor, B: int, L: int) -> torch.Tensor:
     rows = torch.zeros(B * W * L, dtype=torch.int32, device=codes.device)
     rows.index_add_(0, flat.reshape(-1), valid.reshape(-1).to(torch.int32))
     return rows.reshape(B, W, L)
+
+
+def _max_starts(packed: torch.Tensor, B: int, L: int) -> int:
+    """The most reads of one ``(block, window)`` group starting at one
+    position."""
+    codes = packed.reshape(-1, packed.shape[2]).to(torch.int64)
+    key = torch.arange(codes.shape[0], device=codes.device)[:, None] * B + codes // L
+    return int(torch.bincount(key[codes >= 0]).max()) if bool((codes >= 0).any()) else 0
 
 
 def _shift(x: torch.Tensor) -> torch.Tensor:
@@ -188,6 +199,12 @@ def blocked_sweep_pass(
             f"block <= {_CUDA_MAX_BLOCK}; got max_span={L}, block={B}"
         )
     nbw, _, cap = packed.shape
+    # a group holds at most cap reads, so only a larger cap needs the count
+    if cap > _CUDA_MAX_STARTS and _max_starts(packed, B, L) > _CUDA_MAX_STARTS:
+        raise ValueError(
+            f"CUDA sweep kernel keeps arrival counts in uint16: at most "
+            f"{_CUDA_MAX_STARTS} reads of a window may start at one position"
+        )
     dev = packed.device
     args = [t.contiguous() for t in (counts, packed, avail0, selend0, avail0i)]
     tgt = target.contiguous() if target is not None else None

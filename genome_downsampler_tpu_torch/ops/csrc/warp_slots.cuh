@@ -1,7 +1,8 @@
 // Helpers shared by the one-warp sweep kernels (dense_sweep.cu,
-// sweep_variants.cu, blocked_ablate.cu): lane l of the warp owns the SS
-// consecutive ring slots l*SS..l*SS+SS-1 of an L = 32*SS ring in registers,
-// and copies (cp.async) and reads only those slots of a staged row.
+// sweep_variants.cu, blocked_ablate.cu, the sweep warp of blocked_sweep.cu):
+// lane l of the warp owns the SS consecutive ring slots l*SS..l*SS+SS-1 of
+// an L = 32*SS ring in registers, and copies (cp.async) and reads only those
+// slots of a staged row.
 
 #pragma once
 

@@ -15,8 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genome_downsampler_tpu.core.readbatch import ReadBatch
-from genome_downsampler_tpu.solvers.base import Solution, Solver
+from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
+from genome_downsampler_tpu_torch.solvers.base import Solution, Solver
 from genome_downsampler_tpu_torch.device import resolve_device
 from genome_downsampler_tpu_torch.ops.sweep import dense_sweep_counts
 from genome_downsampler_tpu_torch.solvers.device_sweep import (

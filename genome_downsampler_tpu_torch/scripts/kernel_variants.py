@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
+from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 from genome_downsampler_tpu_torch.device import gpu_report, require_cuda
 from genome_downsampler_tpu_torch.ops.coverage import (
     capped_coverage,

@@ -29,9 +29,9 @@ import time
 import numpy as np
 import torch
 
-from genome_downsampler_tpu.core.readbatch import ReadBatch
-from genome_downsampler_tpu.solvers.base import Solution, Solver
-from genome_downsampler_tpu.utils.logging import get_logger
+from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
+from genome_downsampler_tpu_torch.solvers.base import Solution, Solver
+from genome_downsampler_tpu_torch.utils.logging import get_logger
 from genome_downsampler_tpu_torch import _native
 from genome_downsampler_tpu_torch.device import resolve_device
 from genome_downsampler_tpu_torch.ops.coverage import (

@@ -1,31 +1,90 @@
 """Name -> solver registry of the port.
 
-Built on the JAX package's jax-free ``SolverRegistry`` and host factories:
-the CPU names are the same solvers as there. The accelerator names are
-``*-cuda``: ``quasi-mcp-cuda`` is the reference's own name for its
-accelerator solver; ``mcp-cuda``, ``mcp-cuda-blocked`` and
-``qmcp-sweep-cuda`` mirror ``mcp-tpu``, ``mcp-tpu-blocked`` and
-``qmcp-sweep-tpu``. ``mcp-cuda`` and ``quasi-mcp-cuda`` run the dense
-engine up to 262,144 bases and the blocked engine above, and refuse reads
-longer than 256 bases; ``mcp-cuda-blocked`` always runs the blocked engine,
-which grows its span bound for longer reads. Constructing any of them
-without a card raises.
+The registry class and the CPU names are the JAX package's
+(``solvers/registry.py``), copied here with the host solvers they build.
+The accelerator names are ``*-cuda``: ``quasi-mcp-cuda`` is the
+reference's own name for its accelerator solver; ``mcp-cuda``,
+``mcp-cuda-blocked`` and ``qmcp-sweep-cuda`` mirror ``mcp-tpu``,
+``mcp-tpu-blocked`` and ``qmcp-sweep-tpu``. ``mcp-cuda`` and
+``quasi-mcp-cuda`` run the dense engine up to 262,144 bases and the blocked
+engine above, and refuse reads longer than 256 bases; ``mcp-cuda-blocked``
+always runs the blocked engine, which grows its span bound for longer
+reads. Constructing any of them without a card raises. Factories are lazy,
+so importing the registry loads no solver module.
 """
 
 from __future__ import annotations
 
-from genome_downsampler_tpu.solvers.base import Solver
-from genome_downsampler_tpu.solvers.registry import (
-    DEFAULT_SOLVER_NAME,
-    SolverRegistry,
-    _make_greedy,
-    _make_py_greedy,
-    _make_qmcp_cpu,
-    _make_qmcp_lp,
-    _make_test,
-)
+from typing import Callable, Dict, List
 
-__all__ = ["DEFAULT_SOLVER_NAME", "default_registry"]
+from genome_downsampler_tpu_torch.solvers.base import Solver, SpanGuard
+
+DEFAULT_SOLVER_NAME = "quasi-mcp-cpu"  # the reference's default
+
+__all__ = ["DEFAULT_SOLVER_NAME", "SolverRegistry", "default_registry"]
+
+
+class SolverRegistry:
+    def __init__(self) -> None:
+        self._factories: Dict[str, Callable[[], Solver]] = {}
+        self._uses_quality: Dict[str, bool] = {}
+
+    def register(
+        self, name: str, factory: Callable[[], Solver], uses_quality: bool
+    ) -> None:
+        self._factories[name] = factory
+        self._uses_quality[name] = uses_quality
+
+    def contains(self, name: str) -> bool:
+        return name in self._factories
+
+    def get(self, name: str) -> Solver:
+        """A new solver of that name, behind ``SpanGuard``."""
+        if name not in self._factories:
+            raise KeyError(f"unknown solver: {name!r}; known: {self.get_names()}")
+        return SpanGuard(self._factories[name]())
+
+    def uses_quality_of_reads(self, name: str) -> bool:
+        """Static lookup (no instantiation): the CLI needs it before it
+        builds the solver, to pick the amplicon behaviour."""
+        return self._uses_quality[name]
+
+    def get_names(self) -> List[str]:
+        return sorted(self._factories)
+
+
+def _make_greedy() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.native_greedy import (
+        NativeGreedyMcpSolver,
+    )
+
+    return NativeGreedyMcpSolver()
+
+
+def _make_py_greedy() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.greedy_mcp import GreedyMcpSolver
+
+    return GreedyMcpSolver()
+
+
+def _make_qmcp_cpu() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.native_mcmf import NativeQmcpSolver
+
+    return NativeQmcpSolver()
+
+
+def _make_qmcp_lp() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.sequential_mcmf import (
+        QmcpSequentialSolver,
+    )
+
+    return QmcpSequentialSolver()
+
+
+def _make_test() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.test_solver import TestSolver
+
+    return TestSolver()
 
 
 def _make_mcp_cuda() -> Solver:

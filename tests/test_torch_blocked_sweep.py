@@ -177,6 +177,21 @@ def test_sweep_pass_rejects_bad_arguments():
         )
 
 
+def test_max_starts_counts_reads_starting_at_one_position():
+    """The CUDA wrapper's uint16 check: the most reads of one (block,
+    window) group that start at one position, as numpy counts them."""
+    start, end = _uniform(6)
+    hot = np.full(700, 3 * B + 17)  # window 0's fourth block
+    start = np.concatenate([start, hot])
+    end = np.concatenate([end, hot + np.arange(700) % 40])
+    packed, counts, win, _ = _pack(start, end, 900, W, B, L, CHUNK)
+    window, rel = start // win, start % win
+    ref = np.bincount((rel // B * W + window) * B + rel % B).max()
+    assert ref >= 700
+    assert blocked._max_starts(torch.from_numpy(packed), B, L) == ref
+    assert blocked._max_starts(torch.full((2, W, 8), -1, dtype=torch.int32), B, L) == 0
+
+
 def test_oracle_agrees_with_host_greedy_counts():
     """The torch oracle's per-end counts are those of the exact host
     greedy's selection (same minimum count, same end buckets)."""

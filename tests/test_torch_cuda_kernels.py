@@ -4,14 +4,14 @@ card. Skipped where there is no CUDA device; on the card run
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 (``--noconftest``: the suite's conftest imports JAX, which the card's
-machine need not have). Integer bit-equality throughout.
+machine need not have; this file imports only the port). Integer
+bit-equality throughout.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from genome_downsampler_tpu.testing.reads_gen import rand_reads_uniform
 from genome_downsampler_tpu_torch import _native
 from genome_downsampler_tpu_torch.ops import ablate, blocked, sweep, variants
 from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
@@ -20,6 +20,11 @@ from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
     _selection_mask,
     pack_bits,
 )
+from genome_downsampler_tpu_torch.solvers.native_greedy import (
+    NativeGreedyMcpSolver,
+    native_greedy_select,
+)
+from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 
 pytestmark = pytest.mark.cuda
 
@@ -101,10 +106,93 @@ def test_sweep_kernel_matches_plain(cuda, geometry, auto, grid_offset, seeded):
         assert torch.equal(g, r)
 
 
+def _kernel_b_case(L, B, seed):
+    """Packed codes of W=4 windows of 4 blocks: about 2 reads starting per
+    position with spans 1..L-1, and 300 more starting at one position of
+    window 1 (more than 255: int16 headroom). At L >= 512 a block of B > 64
+    positions is more than one chunk of the kernel."""
+    rng = np.random.default_rng(seed)
+    W, n = 4, 4 * 4 * B
+    start = rng.integers(0, n - L, 2 * n)
+    end = start + rng.integers(0, L - 1, 2 * n)
+    hot = np.full(300, 4 * B + B // 2 + 1)
+    start = np.concatenate([start, hot])
+    end = np.concatenate([end, hot + rng.integers(0, min(L - 1, n - hot[0]), 300)])
+    packed, counts, win, n_pad, _ = _native.pack_blocked(
+        start, end, n, W, B, L, cap_multiple=64
+    )
+    return start, end, W, win, n_pad, packed, counts
+
+
+@pytest.mark.parametrize("auto,grid_offset,seeded", [(True, 1, True), (False, 0, False),
+                                                     (False, 2, True)])
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("L", [64, 256, 384, 768])
+def test_sweep_kernel_b_geometries_match_plain(cuda, L, B, auto, grid_offset, seeded):
+    start, end, W, win, n_pad, packed, counts = _kernel_b_case(L, B, L + B)
+    assert np.bincount(start).max() > 255
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    m = 9
+    target = None if auto else torch.tensor(
+        _native.capped_target(start, end, n_pad, m).reshape(W, win), device=cuda)
+    rng = np.random.default_rng(B)
+    carries = [
+        torch.tensor(rng.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                     else np.zeros((W, L), np.int32), device=cuda)
+        for _ in range(3)
+    ]
+    kw = dict(grid_offset=grid_offset, avail0i=carries[2], auto_target=auto,
+              max_coverage=m if auto else 0)
+    got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B, L,
+                                           **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert ref[0].any()
+
+
+@pytest.mark.parametrize("hot,spread", [(40_000, 0), (0, 70_000)])
+def test_sweep_kernel_b_takes_groups_beyond_32768_codes(cuda, hot, spread):
+    """One group of more than 32,768 codes: 40,000 reads starting at one
+    position (beyond int16, within the kernel's uint16 counts), or 70,000
+    spread over one block (cap above 65,535: the wrapper counts starts per
+    position and launches)."""
+    rng = np.random.default_rng(hot + spread)
+    W, B, L, n = 2, 64, 64, 256
+    start = rng.integers(0, n - L, 2 * n)
+    start = np.concatenate([start, np.full(hot, B + 6), 2 * B + np.arange(spread) % B])
+    end = start + rng.integers(0, L - 1, start.shape[0])
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                         cap_multiple=64)
+    assert counts.max() > 32768 and np.bincount(start).max() <= 65535
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    m = 30
+    for auto in (True, False):
+        target = None if auto else torch.tensor(
+            _native.capped_target(start, end, n_pad, m).reshape(W, win), device=cuda)
+        z = torch.zeros((W, L), dtype=torch.int32, device=cuda)
+        kw = dict(avail0i=z, auto_target=auto, max_coverage=m if auto else 0)
+        got = blocked.blocked_sweep_pass(p, c, target, z, z, W, B, L, **kw)
+        torch.cuda.synchronize()
+        ref = blocked.blocked_sweep_pass_plain(p, c, target, z, z, W, B, L, **kw)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+
+
+def test_sweep_kernel_b_rejects_more_than_65535_starts_at_one_position(cuda):
+    W, B, L, cap = 2, 64, 64, 65536
+    p = torch.full((2, W, cap), -1, dtype=torch.int32, device=cuda)
+    p[1, 0] = 5 * L + 3  # 65,536 reads starting at position 5 of block 1
+    c = torch.tensor([[0, 0], [cap, 0]], dtype=torch.int32, device=cuda)
+    z = torch.zeros((W, L), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, auto_target=True,
+                                   max_coverage=3)
+
+
 @pytest.mark.parametrize("geometry", ["small", "clumped", "config4", "span384"])
 def test_windowed_sweep_cuda_matches_host_greedy(cuda, geometry):
-    from genome_downsampler_tpu.solvers.native_greedy import native_greedy_select
-
     start, end, W, B, L, win, n_pad, p, c = _packed(geometry, cuda)
     m = 7
     sel, rounds = blocked.blocked_windowed_sweep(
@@ -138,8 +226,6 @@ def test_select_kernel_matches_plain_and_argsort(cuda, geometry, m):
 
 
 def test_solver_cuda_matches_cpu_and_host_greedy(cuda):
-    from genome_downsampler_tpu.solvers.native_greedy import NativeGreedyMcpSolver
-
     rng = np.random.default_rng(9)
     batch = rand_reads_uniform(rng, 20_000, 300_000, 150)
     for m in (5, 40):
@@ -204,7 +290,6 @@ def test_dense_sweep_kernel_rejects_unsupported_span(cuda):
 
 
 def test_dense_solvers_cuda_match_host_greedy(cuda):
-    from genome_downsampler_tpu.solvers.native_greedy import NativeGreedyMcpSolver
     from genome_downsampler_tpu_torch.parallel.windows import WindowedMcpSolver
     from genome_downsampler_tpu_torch.solvers.batched import solve_batch
     from genome_downsampler_tpu_torch.solvers.device_sweep import (
