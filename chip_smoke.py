@@ -76,15 +76,19 @@ printing neither line, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --against OTHER.cu [--against OTHER2.cu ...]
 
-holds kernel B against other versions of ``blocked_sweep.cu`` with the same
-C entry (an earlier commit's, written out with ``git show
-<commit>:genome_downsampler_tpu_torch/ops/csrc/blocked_sweep.cu``): each is
-built into its own library under ``build/kernel_b_against/`` beside the
-port's kernels, all with ``-Xptxas -v`` (registers and spills per
-instantiation are printed); phases 1 and 2 run, then each version is held
-bit-equal to the port's on the config-4 full pass and tail slice from zero
-and seeded carries, and the two are timed in turns (other, port, port,
-other). It ends with the turns' JSON object instead of the three lines.
+holds a main-path kernel against another version of its source (an earlier
+commit's, written out with ``git show <commit>:genome_downsampler_tpu_torch/
+ops/csrc/dense_sweep.cu``): the kernel is the one whose C entry the other
+source defines (``gd_dense_sweep``: kernel A, ``gd_blocked_sweep``: kernel
+B, ``gd_blocked_select``: kernel C). Each other source is built into its
+own library under ``build/against/``, and the port's source of the same
+kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
+per instantiation are printed). Phases 1 and 2 run, then each version is
+held bit-equal to the port's and the two are timed in turns (other, port,
+port, other) at its kernel's cells: kernel A at config-1 (counts and takes
+mode), the edge and 32 rows of 32,768 positions at config-4's depth;
+kernel B on the config-4 full pass and tail slice; kernel C on the config-4
+full pass. It ends with the turns' JSON object instead of the three lines.
 """
 
 from __future__ import annotations
@@ -114,8 +118,9 @@ EDGE = (1_000_000, 262_144, 50)
 DEEP_CHECK = 4096  # positions per row the plain twin checks (S <= 8)
 WIN_CHECK = 2048  # positions per window row the twin checks, head and tail
 WINDOWS = 32
-# where --against builds the other versions of kernel B (git-ignored)
-AGAINST_DIR = ROOT / "build" / "kernel_b_against"
+# where --against builds the other versions (git-ignored)
+AGAINST_DIR = ROOT / "build" / "against"
+DENSE_ROWS = 32_768  # positions per row of --against's S=32 cell of kernel A
 # bound_ms: the card's peaks (NVIDIA H100 SXM data sheet; the int32 rate
 # from the Hopper white paper: 64 int32 lanes per SM, 132 SMs, 1.98 GHz
 # boost clock); every kernel here is integer work
@@ -301,69 +306,108 @@ def phase_sweep(dev, c4, report):
     }
 
 
+def against_entry(path):
+    """The C entry, one of ``AGAINST_KERNELS``, that the source at ``path``
+    defines."""
+    text = Path(path).read_text()
+    found = [e for e in AGAINST_KERNELS
+             if re.search(rf'extern\s+"C"\s+int\s+{e}\s*\(', text)]
+    if len(found) != 1:
+        raise ValueError(f"{path} defines {found or 'none'} of {list(AGAINST_KERNELS)}")
+    return found[0]
+
+
 def start_against_builds(paths):
-    """Start one ``nvcc -shared`` per other version of kernel B's source and
-    one ``nvcc -c`` of the port's, all with ``-Xptxas -v``; returns
-    ``{label: (command, process)}``."""
+    """Start one ``nvcc -shared`` per other source and one ``nvcc -c`` of the
+    port's source of each kernel they replace, all with ``-Xptxas -v``;
+    returns ``{label: (entry, command, process)}``."""
     from genome_downsampler_tpu_torch.ops import build
 
     AGAINST_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = build._nvcc()
     csrc = ROOT / "genome_downsampler_tpu_torch" / "ops" / "csrc"
     flags = [nvcc, *build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(csrc)]
-    cmds = {"port": [*flags, "-c", "-o", str(AGAINST_DIR / "port.o"),
-                     str(csrc / "blocked_sweep.cu")]}
+    entries = {path: against_entry(path) for path in paths}
+    cmds = {}
+    for entry in sorted(set(entries.values())):
+        src = csrc / AGAINST_KERNELS[entry][0]
+        cmds[f"port {src.name}"] = (entry, [*flags, "-c", "-o",
+                                            str(AGAINST_DIR / f"port_{src.stem}.o"), str(src)])
     for i, path in enumerate(paths):
-        cmds[path] = [*flags, "-shared", "-o", str(AGAINST_DIR / f"lib{i}.so"), path]
-    return {k: (c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True))
-            for k, c in cmds.items()}
+        cmds[path] = (entries[path],
+                      [*flags, "-shared", "-o", str(AGAINST_DIR / f"lib{i}.so"), path])
+    return {k: (e, c, subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True))
+            for k, (e, c) in cmds.items()}
+
+
+# one instantiation in ptxas -v's output: the kernel, its template arguments
+# (slots per lane and the target or takes mode; L for kernel C), spills and
+# registers
+PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '[^']*?(blocked_sweep|dense_sweep|blocked_select)_kernel"
+    r"(?:ILi(\d+)E(?:Lb(\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+    r"loads.*?Used (\d+) registers", re.S)
 
 
 def finish_against_builds(procs):
     """Wait for ``start_against_builds``; log each source's registers and
-    spills per instantiation (S, auto_target); returns ``{path: library}``."""
+    spills per instantiation; returns ``{path: (entry, library)}``."""
     import ctypes
 
     from genome_downsampler_tpu_torch.ops import build
 
     libs = {}
-    for label, (cmd, proc) in procs.items():
+    for label, (entry, cmd, proc) in procs.items():
         txt = proc.communicate()[0]
         if proc.returncode:
             raise build.KernelBuildError(f"{' '.join(cmd)}\n{txt}")
-        inst = re.findall(r"blocked_sweep_kernelILi(\d+)ELb(\d)E.*?(\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads.*?Used (\d+) registers", txt,
-                          re.S)
         log(f"  {label}: " + "; ".join(
-            f"S={s_} auto={a}: {r} registers, spill {st}/{ld} bytes"
-            for s_, a, st, ld, r in inst))
-        if label != "port":
+            f"{k}<{','.join(x for x in (a, b) if x)}>: {r} registers, spill {st}/{ld} bytes"
+            for k, a, b, st, ld, r in PTXAS_ENTRY.findall(txt)))
+        if not label.startswith("port "):
             lib = ctypes.CDLL(str(cmd[cmd.index("-o") + 1]))
-            lib.gd_blocked_sweep.restype = ctypes.c_int
-            lib.gd_blocked_sweep.argtypes = build._SIGNATURES["gd_blocked_sweep"]
-            libs[label] = lib
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = build._SIGNATURES[entry]
+            libs[label] = (entry, lib)
     return libs
 
 
-def phase_turns(dev, c4, libs, report):
-    """Kernel B against other versions of its source: bit-equal on the
-    config-4 full pass and tail slice, from zero and seeded carries, then
-    timed in turns (other, port, port, other). Returns ``{path: {"other
-    full": [ms, ms], "port full": ..., "other tail": ..., "port tail":
-    ...}}``."""
+def in_turns(dev, lib, port, checks, timed, report):
+    """``lib`` against the port's library: every run in ``checks`` bit-equal,
+    then each of ``timed`` (``{cell: (run, positions)}``, ``run(library)``
+    launching the kernel once, uncounted) timed in turns: other, port, port,
+    other. Returns ``{"other cell": [ms, ms], "port cell": [ms, ms], ...}``."""
+    from genome_downsampler_tpu_torch.scripts import best_ms
+
+    for run in checks:
+        max_abs_err(run(lib), run(port))
+    log(f"  bit-equal to the port on {len(checks)} runs")
+    times = {}
+    for turn, (who, which) in enumerate((("other", lib), ("port", port), ("port", port),
+                                         ("other", lib))):
+        for cell, (run, positions) in timed.items():
+            ms = best_ms(lambda: run(which), dev)[1]
+            times.setdefault(f"{who} {cell}", []).append(ms)
+            log(f"  turn {turn} {who} {cell}: {ms:.4f} ms, "
+                f"{1e6 * ms / positions:.2f} ns/position  [{report}]")
+    return times
+
+
+def turns_blocked_sweep(dev, c4):
+    """Kernel B's cells: the config-4 full pass and tail slice (auto target),
+    checked from zero and seeded carries."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import build
-    from genome_downsampler_tpu_torch.scripts import best_ms
 
     p32, cnt, W, B, L = c4["p32"], c4["counts"], c4["W"], c4["B"], c4["L"]
     nbw, _, cap = p32.shape
     tail = nbw - TAIL_BLOCKS
-    port = build.load_kernels()
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run(lib, off, carries):  # one auto-target pass, not counted
+    def run(lib, off, carries):
         out = [torch.empty((W, (nbw - off) * B), dtype=torch.int32, device=dev)]
         out += [torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)]
         build.check("gd_blocked_sweep", lib.gd_blocked_sweep(
@@ -375,22 +419,109 @@ def phase_turns(dev, c4, libs, report):
     seeded = [torch.randint(0, 4, (W, L), generator=g, dtype=torch.int32).to(dev)
               for _ in range(3)]
     zero = [torch.zeros((W, L), dtype=torch.int32, device=dev)] * 3
-    positions = {"full": nbw * B, "tail": TAIL_BLOCKS * B}
+    checks = [lambda lib, o=off, c=carries: run(lib, o, c)
+              for off in (0, tail) for carries in (zero, seeded)]
+    timed = {"full": (lambda lib: run(lib, 0, zero), nbw * B),
+             "tail": (lambda lib: run(lib, tail, zero), TAIL_BLOCKS * B)}
+    return checks, timed
+
+
+def turns_dense_sweep(dev, c4):
+    """Kernel A's cells: config-1 (S=1) in counts and takes mode, the edge
+    (S=1, n=262,144) and S=32 rows of DENSE_ROWS positions at config-4's
+    depth (300x); config-1 takes and the S=32 rows also from seeded
+    carries."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import build
+    from genome_downsampler_tpu_torch.solvers.device_sweep import _dense_inputs
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib, rows, target, carries, takes=False):
+        S, n, L = rows.shape
+        res = torch.empty((S, n, L) if takes else (S, n), dtype=torch.int32, device=dev)
+        fin = [torch.empty((S, L), dtype=torch.int32, device=dev) for _ in range(2)]
+        build.check("gd_dense_sweep", lib.gd_dense_sweep(
+            rows.data_ptr(), target.data_ptr(), *(c.data_ptr() for c in carries),
+            None if takes else res.data_ptr(), res.data_ptr() if takes else None,
+            *(f.data_ptr() for f in fin), S, n, L, int(takes), stream))
+        return [res, *fin]
+
+    cells = {}
+    for name, (pairs, n, m) in (("config-1", C1), ("edge", EDGE)):
+        target, rows = _dense_inputs(uniform_batch(pairs, n), n, m, 256, dev)
+        cells[name] = (rows, target)
+    # S rows cut from one genome of S * DENSE_ROWS positions at 300x
+    S = WINDOWS
+    n = S * DENSE_ROWS
+    pairs = 300 * n // (2 * READ_LEN)
+    target, rows = _dense_inputs(uniform_batch(pairs, n), n, C4_M, 256, dev)
+    cells[f"S={S}"] = (rows.view(S, DENSE_ROWS, 256), target.view(S, DENSE_ROWS))
+
+    g = torch.Generator().manual_seed(SEED)
+    zero = {k: [torch.zeros((k, 256), dtype=torch.int32, device=dev)] * 2 for k in (1, S)}
+    seeded = {k: [torch.randint(0, 4, (k, 256), generator=g, dtype=torch.int32).to(dev)
+                  for _ in range(2)] for k in (1, S)}
+    timed = {
+        name: (lambda lib, r=rows, t=target: run(lib, r, t, zero[r.shape[0]]), rows.shape[1])
+        for name, (rows, target) in cells.items()
+    }
+    r1, t1 = cells["config-1"]
+    timed["config-1 takes"] = (lambda lib: run(lib, r1, t1, zero[1], True), C1[1])
+    rs, ts = cells[f"S={S}"]
+    checks = [run_ for run_, _ in timed.values()] + [
+        lambda lib: run(lib, r1, t1, seeded[1], True),
+        lambda lib: run(lib, rs, ts, seeded[S]),
+    ]
+    return checks, timed
+
+
+def turns_blocked_select(dev, c4):
+    """Kernel C's cell: the config-4 full pass, on the windowed sweep's
+    selection."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import blocked, build
+
+    p32, cnt, W, B, L = c4["p32"], c4["counts"], c4["W"], c4["B"], c4["L"]
+    nbw, _, cap = p32.shape
+    sel, _ = blocked.blocked_windowed_sweep(p32, cnt, None, W, B, L, auto_target=True,
+                                            max_coverage=C4_M)
+    xwin = c4["xwin"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib):
+        out = torch.empty((nbw, W, cap), dtype=torch.int8, device=dev)
+        build.check("gd_blocked_select", lib.gd_blocked_select(
+            p32.data_ptr(), cnt.data_ptr(), sel.data_ptr(), xwin.data_ptr(),
+            out.data_ptr(), nbw, W, cap, B, L, stream))
+        return [out]
+
+    return [run], {"config-4": (run, nbw * B)}
+
+
+# the kernels --against takes, by the C entry the other source defines: the
+# port's source of the kernel and the function that makes its cells
+AGAINST_KERNELS = {"gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
+                   "gd_blocked_sweep": ("blocked_sweep.cu", turns_blocked_sweep),
+                   "gd_blocked_select": ("blocked_select.cu", turns_blocked_select)}
+
+
+def phase_turns(dev, c4, libs, report):
+    """Each other source against the port's version of its kernel, bit-equal
+    and in turns, at that kernel's cells. Returns ``{path: {"entry": ...,
+    "times": {"other cell": [ms, ms], "port cell": [ms, ms], ...}}}``."""
+    from genome_downsampler_tpu_torch.ops import build
+
+    port = build.load_kernels()
     res = {}
-    for path, lib in libs.items():
-        for off in (0, tail):
-            for carries in (zero, seeded):
-                max_abs_err(run(lib, off, carries), run(port, off, carries))
-        log(f"  {path} == port: full pass and tail slice, zero and seeded carries")
-        times = res[path] = {}
-        for turn, (name, which) in enumerate((("other", lib), ("port", port),
-                                              ("port", port), ("other", lib))):
-            for what, off in (("full", 0), ("tail", tail)):
-                ms = best_ms(lambda: run(which, off, zero), dev)[1]
-                times.setdefault(f"{name} {what}", []).append(ms)
-                log(f"  turn {turn} {name} ({path if which is lib else 'port'}) {what}: "
-                    f"{ms:.4f} ms, {1e6 * ms / positions[what]:.2f} ns/position  "
-                    f"[{report}]")
+    for path, (entry, lib) in libs.items():
+        source, cells = AGAINST_KERNELS[entry]
+        log(f"  {path} ({entry}) against the port's {source}")
+        checks, timed = cells(dev, c4)
+        res[path] = {"entry": entry,
+                     "times": in_turns(dev, lib, port, checks, timed, report)}
     return res
 
 
@@ -713,8 +844,8 @@ def solve_pair(dev, reg, name, batch, m, report, label):
 def phase_dense_path(dev, report):
     """mcp-cuda at config-1, the deep 30 kb and the edge: the dense
     engine. Kernel A against its twin on the head of each path's own
-    launch, and timed on the whole of it. Returns (kernel A's launches in
-    the config-1 run, max |err|, {cell: kernel ms})."""
+    launch, and timed on the whole of it. Returns ({cell: kernel A's
+    launches in the cell's run}, max |err|, {cell: kernel ms})."""
     from genome_downsampler_tpu_torch.ops import sweep
     from genome_downsampler_tpu_torch.scripts import best_ms
     from genome_downsampler_tpu_torch.solvers import device_sweep
@@ -738,17 +869,19 @@ def phase_dense_path(dev, report):
             row_head(target, DEEP_CHECK), a0, s0, **kw)[0])
         kernel_ms[label] = best_ms(lambda: sweep.dense_sweep_counts(*args, **kw),
                                    rows.device, 3)[1]
+        bound_ms, bound_by = dense_bound(*rows.shape)
         log(f"  {label}: kernel A alone on the path's launch (S={rows.shape[0]}, "
             f"n={rows.shape[1]}): {kernel_ms[label]:.3f} ms "
-            f"({1e6 * kernel_ms[label] / rows.shape[1]:.1f} ns/position)  [{report}]")
+            f"({1e6 * kernel_ms[label] / rows.shape[1]:.1f} ns/position); bound "
+            f"{bound_ms:.4f} ms ({bound_by})  [{report}]")
         del calls, args, rows, target
-    return launches["config-1"]["dense_sweep"], max(errs), kernel_ms
+    return {k: v["dense_sweep"] for k, v in launches.items()}, max(errs), kernel_ms
 
 
 def phase_windowed(batch, host, report):
     """The windowed solver at config-4, warm; kernel A against its twin on
     the last round's launch (S=W rows, seeded carries). Returns (max |err|,
-    kernel ms of that launch)."""
+    kernel ms of that launch, its bound ms, kernel A's launches)."""
     import numpy as np
     import torch
 
@@ -793,9 +926,11 @@ def phase_windowed(batch, host, report):
         f"plain on the last {T}: S={rows.shape[0]} n={n} L={L}")
     ms = best_ms(lambda: sweep.dense_sweep_counts(rows, target, a0, s0, L),
                  rows.device, 3)[1]
+    bound_ms, bound_by = dense_bound(*rows.shape)
     log(f"  kernel A alone on one round (S={rows.shape[0]}, n={n}): {ms:.3f} ms "
-        f"({1e6 * ms / n:.1f} ns/position)  [{report}]")
-    return max(errs), ms
+        f"({1e6 * ms / n:.1f} ns/position); bound {bound_ms:.4f} ms ({bound_by})  "
+        f"[{report}]")
+    return max(errs), ms, bound_ms, launches["dense_sweep"]
 
 
 def phase_batched(report):
@@ -1018,8 +1153,9 @@ def phase_ablate(dev, report, b_ns):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
-                    help="time kernel B against another version of its source, "
-                         "in turns (phases 1 and 2 only); may repeat")
+                    help="time kernel A, B or C (by the C entry OTHER.cu defines) "
+                         "against another version of its source, in turns "
+                         "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1090,11 +1226,10 @@ def main(argv=None) -> int:
     phase("[2] kernel B (blocked sweep) vs plain twin")
     entries = [phase_sweep(dev, c4, report)]
     if libs:
-        phase("[2b] kernel B against other versions of its source, in turns")
+        phase("[2b] kernels against other versions of their sources, in turns")
         turns = phase_turns(dev, c4, libs, report)
         phase(None)
-        print(json.dumps({"kernel_b_turns": turns, "blocked_sweep": entries[0],
-                          "card": report}))
+        print(json.dumps({"turns": turns, "blocked_sweep": entries[0], "card": report}))
         return 0
     phase("[3] kernel C (selection) vs plain twin and argsort engine")
     entries.append(phase_select(dev, c4, report))
@@ -1109,10 +1244,14 @@ def main(argv=None) -> int:
     dense = phase_dense_kernel(dev, report)
     entries.insert(0, dense)
     phase("[7] dense main path through mcp-cuda")
-    dense["launches"], err7, path_ms = phase_dense_path(dev, report)
+    path_launches, err7, path_ms = phase_dense_path(dev, report)
+    dense["launches"] = path_launches["config-1"]
     dense["edge_ms"] = path_ms["edge"]
+    dense["edge_bound_ms"] = dense_bound(1, EDGE[1], 256)[0]
+    dense["edge_launches"] = path_launches["edge"]
     phase(f"[8] windowed solver, W={WINDOWS}, at config-4")
-    err8, dense["windowed_round_ms"] = phase_windowed(batch, host4, report)
+    (err8, dense["windowed_round_ms"], dense["windowed_round_bound_ms"],
+     dense["windowed_launches"]) = phase_windowed(batch, host4, report)
     del batch, host4
     torch.cuda.empty_cache()
     phase("[9] solve_batch over 8 samples")

@@ -340,7 +340,12 @@ def blocked_selection_pass(packed, counts, sel, xwin, n_windows, block,
     ranks, in its end bucket ordered by (start, read index), below
     ``sel[end]``. ``sel`` int32 ``[W * nbw * B]`` is the sweep output;
     ``xwin`` int32 ``(W, B + L)`` counts reads of earlier windows ending at
-    each window-relative position. Returns int8 ``(nbw, W, cap)``."""
+    each window-relative position. Returns int8 ``(nbw, W, cap)``.
+
+    Precondition of the CUDA kernel (not of the plain twin): each group's
+    codes are sorted ascending, equal codes in read-index order, as the
+    packers emit them. The kernel then ranks a read by the earlier slots of
+    its group with the same end."""
     if packed.device.type == "cpu":
         return blocked_selection_pass_plain(
             packed, counts, sel, xwin, n_windows, block, max_span
@@ -349,6 +354,10 @@ def blocked_selection_pass(packed, counts, sel, xwin, n_windows, block,
         raise ValueError(f"no selection pass for device {packed.device}")
     W, B, L = n_windows, block, max_span
     _selection_args(packed, counts, sel, xwin, W, B, L)
+    if L not in _CUDA_SPANS:
+        raise ValueError(
+            f"CUDA selection kernel supports max_span in {_CUDA_SPANS}; got {L}"
+        )
     nbw, _, cap = packed.shape
     dev = packed.device
     p, c, s, x = (t.contiguous() for t in (packed, counts, sel, xwin))

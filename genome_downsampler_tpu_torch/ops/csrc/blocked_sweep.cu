@@ -50,7 +50,8 @@
 // Lane l of warp 0 owns the S = L/32 consecutive ring slots l*S..l*S+S-1
 // in registers, and per position reads its S slots of the tile
 // row (one to three shared loads of 4-16 bytes) and the target, issued one
-// position ahead; it writes selend[0] to a shared buffer from every lane
+// position ahead, runs the step (gd::sweep_step in warp_slots.cuh, shared
+// with kernel A), and writes selend[0] to a shared buffer from every lane
 // (same address, same value: no branch, no global address). No walk of the
 // codes, no third ring and no divergent store stays on the chain. Chunks
 // are cut by positions within a block, P = 128 for L <= 384 and 64 above,
@@ -68,6 +69,8 @@
 
 namespace {
 
+using gd::bar_arrive;
+using gd::bar_sync;
 using gd::kFull;
 
 constexpr int kProducerWarps = 3;
@@ -78,14 +81,6 @@ constexpr int kThreads = 32 + kProducers;
 constexpr int kBarFull = 1;
 constexpr int kBarEmpty = 3;
 constexpr int kBarProducers = 5;
-
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
 
 // this lane's S 16-bit slots of a tile row (shared -> registers); p is the
 // lane's first slot
@@ -170,9 +165,6 @@ __device__ __forceinline__ void sweep_warp(
     int32_t* __restrict__ availf, int32_t* __restrict__ selendf, int64_t w,
     int lane, int B, int P, int cpb, int64_t nchunks) {
   constexpr int L = 32 * S;
-  // register slot j+1, clamped so the index stays in range where the
-  // caller takes the neighbour lane's value instead (j = S - 1)
-  auto nxt_slot = [](int j) { return j + 1 < S ? j + 1 : S - 1; };
   const int k0 = lane * S;
 
   // ---- carries in: avail form -> suffix form; cur = sum(selend) is the
@@ -218,24 +210,9 @@ __device__ __forceinline__ void sweep_warp(
       int nadd[S];
       load_row16<S>(rows + bn * L, nadd);
       const int ntgt = tg[bn];
-      // ---- one sweep step
-#pragma unroll
-      for (int j = 0; j < S; ++j) F[j] += add[j];
-      int nxt = __shfl_down_sync(kFull, F[0], 1);
-      if (lane == 31) nxt = 0;
-      const int F0 = __shfl_sync(kFull, F[0], 0);
-      const int deficit = tgt - cur;
-      const int taken = min(max(deficit, 0), F0);
-#pragma unroll
-      for (int j = 0; j < S; ++j) {
-        const int G = (j + 1 < S) ? F[nxt_slot(j)] : nxt;
-        Se[j] += min(max(deficit - G, 0), F[j] - G);
-      }
-#pragma unroll
-      for (int j = 0; j < S; ++j) F[j] -= min(taken, F[j]);
-      const int em = __shfl_sync(kFull, Se[0], 0);
-      em_s[b] = em;  // every lane: one address, one value
-      cur += taken - em;
+      int tk[S];  // unused: the compiler drops it
+      // every lane: one address, one value
+      em_s[b] = gd::sweep_step<S>(F, Se, add, tgt, cur, lane, tk);
       gd::shift_down<S>(F, Se, lane);
 #pragma unroll
       for (int j = 0; j < S; ++j) add[j] = nadd[j];
@@ -249,7 +226,7 @@ __device__ __forceinline__ void sweep_warp(
   if (lane == 31) nf = 0;
 #pragma unroll
   for (int j = 0; j < S; ++j) {
-    const int gf = (j + 1 < S) ? F[nxt_slot(j)] : nf;
+    const int gf = (j + 1 < S) ? F[gd::next_slot(j, S)] : nf;
     availf[w * L + k0 + j] = F[j] - gf;
     selendf[w * L + k0 + j] = Se[j];
   }

@@ -53,6 +53,13 @@ def _case(geometry, seed=0):
         n = 60_000
         start = rng.integers(0, n - 400, 60_000)
         return start, start + rng.integers(30, 300, 60_000), n, 8, 128, 384, 128
+    if geometry == "long768":  # L = 768 with B = 64: kernel C looks 12 groups back
+        n = 4 * 16 * 64
+        start = rng.integers(0, n - 768, 6000)
+        return start, start + rng.integers(0, 767, 6000), n, 4, 64, 768, 64
+    if geometry == "w1":  # one window: no earlier windows, xwin is zero
+        start = rng.integers(0, 2000 - 100, 5000)
+        return start, start + rng.integers(0, 99, 5000), 2000, 1, 128, 128, 128
     raise ValueError(geometry)
 
 
@@ -209,13 +216,16 @@ def test_windowed_sweep_cuda_matches_host_greedy(cuda, geometry):
         assert torch.equal(sel.cpu(), sel_cpu) and rounds == rounds_cpu
 
 
-@pytest.mark.parametrize("geometry,m", [("small", 6), ("clumped", 3), ("config4", 50)])
+@pytest.mark.parametrize("geometry,m", [("small", 6), ("clumped", 3), ("config4", 50),
+                                        ("long768", 9), ("w1", 12)])
 def test_select_kernel_matches_plain_and_argsort(cuda, geometry, m):
     start, end, W, B, L, win, n_pad, p, c = _packed(geometry, cuda)
     sel, _ = blocked.blocked_windowed_sweep(
         p, c, None, W, B, L, auto_target=True, max_coverage=m
     )
     xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=cuda)
+    if geometry in ("small", "long768"):
+        assert xwin.any()  # reads of earlier windows end in these windows
     n0 = blocked.blocked_selection_pass.launches
     got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
     torch.cuda.synchronize()
@@ -223,6 +233,39 @@ def test_select_kernel_matches_plain_and_argsort(cuda, geometry, m):
     assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B, L))
     bits, n_sel = _selection_mask(p, sel, W, B, L, win)
     assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel
+
+
+@pytest.mark.parametrize("hot,spread", [(40_000, 0), (0, 70_000)])
+def test_select_kernel_takes_groups_of_40000_and_70000_codes(cuda, hot, spread):
+    """One group of 40,000 codes (reads starting at one position) or 70,000
+    (spread over one block): the CTA's four warps split the walk. One
+    window, so the twin's (cap, cap) comparison fits the card."""
+    rng = np.random.default_rng(hot + spread + 1)
+    W, B, L, n = 1, 64, 64, 256
+    start = rng.integers(0, n - L, 2 * n)
+    start = np.concatenate([start, np.full(hot, B + 6), 2 * B + np.arange(spread) % B])
+    end = start + rng.integers(0, L - 1, start.shape[0])
+    packed, counts, win, _, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                     cap_multiple=64)
+    assert counts.max() > 32768
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                            max_coverage=30)
+    xwin = torch.zeros((W, B + L), dtype=torch.int32, device=cuda)
+    got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B, L))
+    bits, n_sel = _selection_mask(p, sel, W, B, L, win)
+    assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel > 0
+
+
+def test_select_kernel_rejects_unsupported_span(cuda):
+    p = torch.full((1, 1, 64), -1, dtype=torch.int32, device=cuda)
+    c = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    sel = torch.zeros(64, dtype=torch.int32, device=cuda)
+    xwin = torch.zeros((1, 64 + 48), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="max_span"):
+        blocked.blocked_selection_pass(p, c, sel, xwin, 1, 64, 48)
 
 
 def test_solver_cuda_matches_cpu_and_host_greedy(cuda):
@@ -258,8 +301,17 @@ def _dense_case(S, n, L, m, seed):
         (4, 4096, 64, True, False),
         (4, 4096, 64, False, True),
         (3, 1000, 32, True, False),
+        (3, 1000, 32, False, True),
         (2, 700, 768, True, True),
+        (2, 700, 768, False, False),
         (2, 2000, 256, True, False),
+        # n below one chunk of positions (64 at L=256, 512 at L=32), and n
+        # not a multiple of it
+        (1, 63, 256, True, False),
+        (1, 100, 32, False, True),
+        (2, 65, 256, False, True),
+        # more rows than SMs
+        (140, 300, 64, True, False),
     ],
 )
 def test_dense_sweep_kernel_matches_plain(cuda, S, n, L, seeded, takes):
@@ -279,6 +331,43 @@ def test_dense_sweep_kernel_matches_plain(cuda, S, n, L, seeded, takes):
     ref = sweep.dense_sweep_counts_plain(*args, takes=takes)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("takes", [False, True])
+def test_dense_sweep_kernel_takes_no_positions(cuda, takes):
+    rng = np.random.default_rng(1)
+    a0, s0 = (torch.tensor(rng.integers(0, 4, (2, 64)).astype(np.int32), device=cuda)
+              for _ in range(2))
+    rows = torch.zeros((2, 0, 64), dtype=torch.int32, device=cuda)
+    t = torch.zeros((2, 0), dtype=torch.int32, device=cuda)
+    got = sweep.dense_sweep_counts(rows, t, a0, s0, 64, takes=takes)
+    torch.cuda.synchronize()
+    ref = sweep.dense_sweep_counts_plain(rows, t, a0, s0, 64, takes=takes)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(got[1], a0) and torch.equal(got[2], s0)
+
+
+@pytest.mark.parametrize("takes", [False, True])
+def test_dense_sweep_kernel_counts_100000_starts_at_one_position(cuda, takes):
+    """100,000 reads of one span start at one position: the arrival count,
+    its suffix sums, the take and the emitted count exceed 16 bits."""
+    rng = np.random.default_rng(4)
+    n, L, m = 2000, 256, 80_000
+    start = rng.integers(0, n - L, 4000)
+    end = np.concatenate([start + rng.integers(0, L - 1, 4000), np.full(100_000, 899)])
+    start = np.concatenate([start, np.full(100_000, 700)])
+    rows = np.zeros((1, n, L), np.int32)
+    np.add.at(rows[0], (start, end - start), 1)
+    target = _native.capped_target(start, end, n, m)[None]
+    z = torch.zeros((1, L), dtype=torch.int32, device=cuda)
+    args = (torch.tensor(rows, device=cuda), torch.tensor(target, device=cuda), z, z, L)
+    got = sweep.dense_sweep_counts(*args, takes=takes)
+    torch.cuda.synchronize()
+    ref = sweep.dense_sweep_counts_plain(*args, takes=takes)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert int(ref[0].max()) > 65535
 
 
 def test_dense_sweep_kernel_rejects_unsupported_span(cuda):
