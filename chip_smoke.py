@@ -55,7 +55,25 @@ package. Phases, each of which raises on failure:
     rows at 1M reads over 2.5 Mb (S=64, 2.6 GB of rows); the seven modes
     timed through ``scripts.bench_kernel_ablate``'s ``run`` at its default
     (6M reads, W=64, B=128, L=256), beside kernel B's time per position,
-    and each equal to its twin on the first blocks of that default.
+    and each equal to its twin on the first blocks of that default;
+13. the SSP kernel (``qmcp-cuda``'s whole solve, one launch) == its twin in
+    flows, supply, status, phases and rounds on the six seeded inputs of the
+    JAX suite's random LP cases (N=600), on the 3,000-base cut of config-1
+    (2,508 pairs, M=100) and on config-1 itself (eight 4,096-node scan
+    tiles), status OK; timed on config-1 and on the cut;
+14. ``qmcp-cuda`` through the registry against ``qmcp-cpu`` (the host C++
+    MCMF), each warmed on other data: config-1 and the device limit's edge
+    at config-1's depth (109,583 pairs over 131,072 bases), total cost
+    equal, coverage valid, ``engine == "device"``, one SSP launch a solve; a 262,144-base genome goes to the host engine;
+15. the profiler (``utils.profiling.trace``) around one warm config-4
+    ``mcp-cuda`` solve and one warm config-1 ``qmcp-cuda`` solve: the
+    device's busy share of the traced window and device time per kernel;
+    the traces under ``build/profile/``.
+
+Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
+reads at L=1,024 and 4,096, timed; an int32 arrival tile under 70,000
+reads starting at one position) and kernel C's run-time-L instantiation
+(L=1,024 and 4,096) to their twins.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; each phase prints its wall time. Phases 7-9 also record
@@ -134,6 +152,17 @@ SWEEP_OPS = 8
 # per selected-or-not read of kernel C: its start and end from the code,
 # the bucket's rank offset, the quota gather, the compare, the store
 SELECT_OPS = 8
+# the SSP kernel, per fixpoint round: d, pk, pid, pi over the n + 1 nodes
+# and flow, cap, off0, bstart, bend1, pool over the B buckets, 4 bytes
+# each, moved once; 8 int32 operations per node and per bucket side
+SSP_NODE_ARRAYS, SSP_BUCKET_ARRAYS, SSP_OPS = 4, 6, 8
+# qmcp cells (pairs of 150 bp reads, genome, M): the 3,000-base cut of
+# config-1 the SSP kernel is timed on, the device limit's edge and a genome
+# above it, all at config-1's depth
+SSP_CUT = (2_508, 3_000, 100)
+QMCP_EDGE = (109_583, 131_072, 100)
+QMCP_HOST = (219_166, 262_144, 100)
+PROFILE_DIR = ROOT / "build" / "profile"
 
 
 def log(*a):
@@ -156,7 +185,7 @@ def sweep_bound(codes, W, positions, L, extra_bytes):
 
 def launch_counts():
     """Each kernel's wrapper, which carries its launch count."""
-    from genome_downsampler_tpu_torch.ops import ablate, blocked, sweep, variants
+    from genome_downsampler_tpu_torch.ops import ablate, blocked, ssp, sweep, variants
 
     return {
         "dense_sweep": sweep.dense_sweep_counts,
@@ -165,6 +194,7 @@ def launch_counts():
         "variant_c": variants.sweep_variant_c,
         "variant_b": variants.sweep_variant_b,
         "ablate": ablate.blocked_ablate,
+        "ssp": ssp.ssp_solve,
     }
 
 
@@ -1150,6 +1180,293 @@ def phase_ablate(dev, report, b_ns):
     }
 
 
+def ssp_network(start, end, cost, n, m):
+    """The SSP kernel's int32 inputs for reads (start, end, cost) at M=m,
+    and its phase cap (supply + 16), as ``ssp_device_flows`` builds them."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch.solvers.device_mcmf import (
+        _node_excess,
+        _run_tables,
+        build_convex_buckets,
+    )
+
+    bs, be, off, pool, _, first = build_convex_buckets(start, end, cost)
+    B = bs.shape[0]
+    excess = _node_excess(bs, be, np.diff(off), n, m)
+    lo, hi = _run_tables(pool, first)
+    arrays = [bs, be + 1, off[:B], np.diff(off), pool, lo, hi, excess]
+    return ([torch.tensor(np.ascontiguousarray(a, np.int32)) for a in arrays],
+            int(excess[excess > 0].sum()) + 16)
+
+
+def ssp_bound(n, B, rounds):
+    """The SSP kernel's bound on this run: per fixpoint round the node and
+    bucket arrays moved once and SSP_OPS operations a node and bucket side."""
+    return bound(rounds * SSP_OPS * (n + 1 + 2 * B),
+                 rounds * 4 * (SSP_NODE_ARRAYS * (n + 1) + SSP_BUCKET_ARRAYS * B))
+
+
+def quality_cost(batch):
+    import numpy as np
+
+    q = np.asarray(batch.quality, np.int64)
+    return q.max() - q + 1
+
+
+def phase_ssp_kernel(dev, report):
+    """The SSP kernel against its twin on the JAX suite's six random LP
+    inputs, the 3,000-base cut and config-1 (n + 1 = 29,904 nodes, eight of
+    the kernel's 4,096-node scan tiles, so the carries between tiles are
+    held to the twin); timed on config-1, the shape the main path gives it,
+    and on the cut. Returns its entry."""
+    import numpy as np
+
+    from genome_downsampler_tpu_torch.ops import ssp
+    from genome_downsampler_tpu_torch.scripts import best_ms
+
+    def lp_case(seed):  # tests/test_device_mcmf.py::test_device_ssp_matches_lp_random
+        rng = np.random.default_rng(seed)
+        r = int(rng.integers(8, 300))
+        start = rng.integers(0, 600, r)
+        end = np.minimum(start + rng.integers(1, 150, r), 599)
+        return start, end, rng.integers(1, 60, r), 600, int(rng.integers(1, 9))
+
+    def reads_case(pairs, n, m):
+        b = uniform_batch(pairs, n)
+        return (np.asarray(b.start, np.int64), np.asarray(b.end, np.int64),
+                quality_cost(b), n, m)
+
+    cases = [(f"LP seed {i}", lp_case(i)) for i in range(6)]
+    cases.append(("3,000-base cut", reads_case(*SSP_CUT)))
+    cases.append(("config-1", reads_case(*C1)))
+    errs, timed = [], {}
+    for what, case in cases:
+        arrays, cap = ssp_network(*case)
+        on_dev = [a.to(dev) for a in arrays]
+        got = ssp.ssp_solve(*on_dev, cap)
+        ref, plain_ms = best_ms(lambda: ssp.ssp_solve_plain(*on_dev, cap), dev, 1,
+                                warm=False)
+        errs.append(max_abs_err([got[0]], [ref[0]]))
+        if got[1:] != ref[1:] or got[2] != ssp.OK:
+            raise AssertionError(f"SSP kernel (supply, status, phases, rounds) "
+                                 f"{got[1:]} != twin {ref[1:]} on {what}")
+        B, n = arrays[0].shape[0], arrays[-1].shape[0] - 1
+        log(f"  SSP kernel == plain on {what}: B={B}, n={n}, {got[3]} phases, "
+            f"{got[4]} rounds, status OK")
+        if what in ("3,000-base cut", "config-1"):
+            ms = best_ms(lambda: ssp.ssp_solve(*on_dev, cap), dev)[1]
+            rounds = got[4]
+            bound_ms, bound_by = ssp_bound(n, B, rounds)
+            timed[what] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "n": n, "B": B, "phases": got[3],
+                           "rounds": rounds, "us_per_round": 1e3 * ms / rounds}
+            log(f"  SSP kernel on {what}: {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a "
+                f"fixpoint round, {rounds} rounds), plain twin {plain_ms:.1f} ms; "
+                f"bound {bound_ms:.4f} ms ({bound_by})  [{report}]")
+        del on_dev
+    c1, cut = timed["config-1"], timed["3,000-base cut"]
+    return {
+        "name": "ssp", "route": "cuda",
+        "source": "genome_downsampler_tpu_torch/ops/csrc/ssp.cu",
+        "replaces": "genome_downsampler_tpu/solvers/device_mcmf.py:198",
+        "max_abs_err": max(errs), "ms": c1["ms"], "plain_ms": c1["plain_ms"],
+        "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"], "library_ms": None,
+        "timed_on": f"config-1: n={c1['n']}, B={c1['B']}, {c1['phases']} phases, "
+                    f"{c1['rounds']} rounds",
+        "us_per_round": c1["us_per_round"],
+        "cut": {k: cut[k] for k in ("ms", "plain_ms", "bound_ms", "n", "B", "phases",
+                                    "rounds", "us_per_round")},
+    }
+
+
+def qmcp_pair(dev, reg, batch, m, label, report):
+    """Warm qmcp-cuda (warmed on other data) against qmcp-cpu on one batch,
+    launches counted; returns (launches, stats, cuda s, cpu s)."""
+    import numpy as np
+    import torch
+
+    solver = reg.get("qmcp-cuda")
+    pairs = batch.n_reads // 2
+    solver.solve(m, uniform_batch(pairs, batch.ref_genome_length, SEED + 1))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sel = solver.solve(m, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    host = reg.get("qmcp-cpu").solve(m, batch)
+    host_s = time.perf_counter() - t0
+    cost = quality_cost(batch)
+    if int(cost[sel].sum()) != int(cost[host].sum()):
+        raise AssertionError(f"qmcp-cuda cost {cost[sel].sum()} != qmcp-cpu "
+                             f"{cost[host].sum()} at {label}")
+    check_valid(dev, batch, np.asarray(sel), m)
+    stats = solver.inner.last_stats
+    log(f"  {label}: qmcp-cuda == qmcp-cpu in cost ({int(cost[sel].sum())}), "
+        f"{len(sel)} and {len(host)} of {batch.n_reads} reads, coverage valid; "
+        f"warm qmcp-cuda {dt:.4f} s vs qmcp-cpu {host_s:.4f} s; launches {launches}  "
+        f"[{report}]")
+    log(f"    last_stats: {json.dumps(stats)}")
+    return launches, stats, dt, host_s
+
+
+def phase_qmcp_exact(dev, report):
+    """qmcp-cuda against qmcp-cpu at config-1 and the edge; a genome above
+    the limit goes to the host engine. Returns the SSP launches of the
+    config-1 solve and the edge solve's numbers."""
+    from genome_downsampler_tpu_torch.solvers.device_mcmf import DEVICE_GENOME_LIMIT
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    reg = default_registry()
+    out = {}
+    for label, (pairs, n, m) in (("config-1", C1), ("edge", QMCP_EDGE),
+                                 ("above the limit", QMCP_HOST)):
+        launches, stats, dt, host_s = qmcp_pair(dev, reg, uniform_batch(pairs, n), m,
+                                                label, report)
+        engine = "host" if n > DEVICE_GENOME_LIMIT else "device"
+        if stats["engine"] != engine:
+            raise AssertionError(f"{label}: engine {stats['engine']}, not {engine}")
+        expect_launches(launches, *(["ssp"] if engine == "device" else []))
+        if engine == "device" and launches["ssp"] != 1:
+            raise AssertionError(f"{label}: {launches['ssp']} SSP launches, not 1")
+        out[label] = {"launches": launches["ssp"], "qmcp_cuda_s": dt,
+                      "qmcp_cpu_s": host_s, "phases": stats["phases"],
+                      "rounds": stats["rounds"], "buckets": stats["buckets"]}
+    return out
+
+
+def busy_share(prof, window_s):
+    """(device busy share of the window, {kernel: device ms}) from a
+    torch.profiler run: the union of the device intervals over the host's
+    window, and the device time summed by name."""
+    from torch.autograd import DeviceType
+
+    spans, per = [], {}
+    for e in prof.events():
+        # kernels and copies; not the solvers' named regions mirrored there
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith(("blocked.", "dense.", "qmcp."))):
+            spans.append((e.time_range.start, e.time_range.end))
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return (busy / 1e6 / window_s if spans else None), per
+
+
+def phase_profile(dev, report):
+    """torch.profiler around one warm config-4 mcp-cuda solve and one warm
+    config-1 qmcp-cuda solve. Returns {solve: busy share}."""
+    import torch
+
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+    from genome_downsampler_tpu_torch.utils.profiling import TRACE_FILE, trace
+
+    reg = default_registry()
+    c1 = uniform_batch(*C1[:2])
+    runs = {"config-4 mcp-cuda": ("mcp-cuda", config4_batch(), C4_M),
+            "config-1 qmcp-cuda": ("qmcp-cuda", c1, C1[2])}
+    shares = {}
+    for i, (label, (name, batch, m)) in enumerate(runs.items()):
+        solver = reg.get(name)
+        solver.solve(m, batch)  # warm
+        out = PROFILE_DIR / ("config4" if i == 0 else "qmcp")
+        torch.cuda.synchronize()
+        with trace(out) as prof:
+            t0 = time.perf_counter()
+            solver.solve(m, batch)
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        if not (out / TRACE_FILE).exists():
+            raise AssertionError(f"no trace written under {out}")
+        share, per = busy_share(prof, window)
+        shares[label] = share
+        top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  {label}: traced window {window:.4f} s, device busy "
+            + (f"{100 * share:.2f}% (idle {100 * (1 - share):.2f}%)" if share is not None
+               else "not measured (the profiler saw no device activity)")
+            + f"; trace {out / TRACE_FILE}  [{report}]")
+        for k, v in top:
+            log(f"    device {v:.3f} ms  {k[:90]}")
+        del batch
+    return shares
+
+
+def phase_wide_sweep(dev, report):
+    """Kernel B's wide path against its twin: long reads at L=1,024 and
+    4,096 (uint16 tile) and 70,000 reads starting at one position (int32
+    tile); kernel C's run-time-L instantiation at L=1,024. Returns (max
+    |err|, {what: ms}) with the L=4,096 pass timed."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch import _native
+    from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
+        _cross_window_offsets,
+        _selection_mask,
+        pack_bits,
+    )
+
+    rng = np.random.default_rng(SEED)
+    errs, times = [], {}
+    W, B = 4, 128
+    for L in (1024, 4096):
+        n = W * max(4 * B, L)
+        start = rng.integers(0, n - L, 2 * n)
+        end = start + rng.integers(0, L - 1, 2 * n)
+        packed, counts, win, _, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                         cap_multiple=64)
+        p, c = torch.tensor(packed, device=dev), torch.tensor(counts, device=dev)
+        z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+        kw = dict(avail0i=z, auto_target=True, max_coverage=9)
+        got = blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, blocked.blocked_sweep_pass_plain(
+            p, c, None, z, z, W, B, L, **kw)))
+        times[f"L={L}"] = ms = best_ms(
+            lambda: blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw), dev)[1]
+        sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                                max_coverage=9)
+        xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=dev)
+        got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err([got], [blocked.blocked_selection_pass_plain(
+            p, c, sel, xwin, W, B, L)]))
+        bits, n_sel = _selection_mask(p, sel, W, B, L, win)
+        if not torch.equal(pack_bits(got), bits) or int(got.sum()) != n_sel:
+            raise AssertionError(f"kernel C disagrees with the argsort engine at L={L}")
+        log(f"  kernel B wide path and kernel C == plain at L={L} (W={W}, B={B}, "
+            f"{win} positions a window): kernel B {ms:.3f} ms, "
+            f"{1e6 * ms / win:.1f} ns/position  [{report}]")
+    # 70,000 reads of one window starting at one position: the int32 tile
+    W, L, n, hot = 2, 64, 256, 70_000
+    start = rng.integers(0, n - L, 2 * n)
+    end = np.concatenate([start + rng.integers(0, L - 1, 2 * n), np.full(hot, 64 + 35)])
+    start = np.concatenate([start, np.full(hot, 64 + 5)])
+    packed, counts, _, _, _ = _native.pack_blocked(start, end, n, W, 64, L, cap_multiple=64)
+    p, c = torch.tensor(packed, device=dev), torch.tensor(counts, device=dev)
+    z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+    kw = dict(avail0i=z, auto_target=True, max_coverage=80_000)
+    got = blocked.blocked_sweep_pass(p, c, None, z, z, W, 64, L, **kw)
+    torch.cuda.synchronize()
+    ref = blocked.blocked_sweep_pass_plain(p, c, None, z, z, W, 64, L, **kw)
+    errs.append(max_abs_err(got, ref))
+    if int(ref[0].max()) <= 65535:
+        raise AssertionError("the deep stack case does not exceed uint16")
+    log(f"  kernel B wide path (int32 tile) == plain: {hot} reads starting at one "
+        f"position, {int(ref[0].max())} selected ending at one position")
+    return max(errs), times
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
@@ -1234,6 +1551,11 @@ def main(argv=None) -> int:
     phase("[3] kernel C (selection) vs plain twin and argsort engine")
     entries.append(phase_select(dev, c4, report))
     del c4
+    phase("[3b] kernel B's wide path and kernel C at long spans vs plain twins")
+    wide_err, wide_ms = phase_wide_sweep(dev, report)
+    for ent in entries:
+        ent["max_abs_err"] = max(ent["max_abs_err"], wide_err)
+    entries[0]["wide_path_ms"] = wide_ms
     phase("[4] main path at config-4 through mcp-cuda (blocked engine)")
     launches, host4 = phase_main_path(dev, batch, report)
     for ent in entries:
@@ -1266,6 +1588,16 @@ def main(argv=None) -> int:
     b_ns = next(e for e in entries if e["name"] == "blocked_sweep")[
         "full_pass_ns_per_position"]
     entries.append(phase_ablate(dev, report, b_ns))
+    torch.cuda.empty_cache()
+    phase("[13] the SSP kernel vs plain twin")
+    ssp_entry = phase_ssp_kernel(dev, report)
+    entries.append(ssp_entry)
+    phase("[14] qmcp-cuda vs qmcp-cpu: config-1, the edge, above the limit")
+    qmcp = phase_qmcp_exact(dev, report)
+    ssp_entry["launches"] = qmcp["config-1"]["launches"]
+    ssp_entry["solves"] = qmcp
+    phase("[15] profiler: device busy share of warm solves")
+    ssp_entry["busy_share"] = phase_profile(dev, report)
     phase(None)
     log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 

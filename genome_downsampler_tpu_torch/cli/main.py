@@ -10,8 +10,9 @@ contig by contig, add mates, write) are those of the JAX package's CLI,
 whose parser and test runner are copied here; the solvers come from this
 package's registry (``*-cuda`` names). ``--windows N`` (N > 1) runs
 ``WindowedMcpSolver`` on the card and is accepted only with ``mcp-cuda`` /
-``quasi-mcp-cuda``. ``--sharded`` and ``--profile-dir`` are not ported yet
-and are refused.
+``quasi-mcp-cuda``. ``--profile-dir DIR`` writes a ``torch.profiler``
+trace of the solve to ``DIR/trace.json`` (``utils.profiling``).
+``--sharded`` is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -67,7 +68,8 @@ def build_parser(registry) -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true",
                    help="Execute with additional logging.")
     p.add_argument("--profile-dir", type=Path, default=None,
-                   help="Profiler trace directory (not ported yet; refused).")
+                   help="Write a torch.profiler trace of the solve into this "
+                        "directory (trace.json, Chrome trace format).")
     p.add_argument("--windows", type=int, default=1,
                    help="Shard the genome into this many coordinate windows "
                         "solved in parallel on the card (mcp-cuda/"
@@ -126,15 +128,10 @@ def run_test(args, registry) -> int:
 
 
 def run_downsample(args, registry) -> int:
-    unported = {
-        "--sharded": args.sharded,
-        "--profile-dir": args.profile_dir is not None,
-    }
-    for flag, given in unported.items():
-        if given:
-            _log.error("%s is not yet ported to the CUDA package "
-                       "(ROADMAP.md, queue A)", flag)
-            return 2
+    if args.sharded:
+        _log.error("%s is not yet ported to the CUDA package "
+                   "(ROADMAP.md, queue A)", "--sharded")
+        return 2
     if not args.input or not args.max_coverage:
         _log.error("INPUT_FILEPATH and MAX_COVERAGE must be specified")
         return 1
@@ -178,18 +175,20 @@ def run_downsample(args, registry) -> int:
         solver = registry.get(args.algorithm)
 
     from genome_downsampler_tpu_torch.io.bam import BamReader
+    from genome_downsampler_tpu_torch.utils.profiling import trace
 
     reader = BamReader(input_path, config)
     batch = reader.get_batch()
     t0 = time.perf_counter()
-    groups = batch.split_by_contig()
-    if len(groups) > 1:
-        _log.info("input has %d contigs with reads; solving per contig",
-                  len(groups))
-    parts = [
-        idx[np.asarray(solver.solve(args.max_coverage, sub), np.int64)]
-        for _, sub, idx in groups
-    ]
+    with trace(args.profile_dir):
+        groups = batch.split_by_contig()
+        if len(groups) > 1:
+            _log.info("input has %d contigs with reads; solving per contig",
+                      len(groups))
+        parts = [
+            idx[np.asarray(solver.solve(args.max_coverage, sub), np.int64)]
+            for _, sub, idx in groups
+        ]
     solution = np.concatenate(parts) if parts else np.zeros(0, np.int64)
     _log.debug("solve took %.6f seconds", time.perf_counter() - t0)
 

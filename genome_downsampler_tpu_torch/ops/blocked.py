@@ -8,8 +8,9 @@ bucketed on the host into ``(block t, window w)`` groups of codes
 
 - ``expand_flat_codes`` rebuilds the padded ``(nbw, W, cap)`` int32 layout
   (``-1`` pads) from the flat uint16 stream;
-- ``blocked_sweep_pass`` (kernel B, ``csrc/blocked_sweep.cu``) runs one
-  relaxation round of the water-filling sweep over all W windows;
+- ``blocked_sweep_pass`` (kernel B, ``csrc/blocked_sweep.cu``; for long
+  reads or deep stacks its wide path ``csrc/blocked_sweep_wide.cu``) runs
+  one relaxation round of the water-filling sweep over all W windows;
 - ``blocked_windowed_sweep`` drives rounds until every window's carry-in
   equals its left neighbour's carry-out, which makes the result
   bit-identical to the global sequential sweep;
@@ -33,12 +34,25 @@ import torch
 
 from genome_downsampler_tpu_torch.ops import build
 
-# largest block the CUDA sweep kernel takes, its L values, and the most
-# reads of one window that may start at one position (its arrival counts
-# are uint16)
+# largest block the CUDA sweep kernel takes; the L values of its register
+# path (csrc/blocked_sweep.cu) and the most reads of one window that may
+# start at one position there (its arrival counts are uint16); every other
+# L, a multiple of 32 up to _CUDA_MAX_SPAN, and deeper stacks take the wide
+# path (csrc/blocked_sweep_wide.cu: rings in shared memory, an int32 tile
+# where the stack needs it). Kernel C takes the same L.
 _CUDA_MAX_BLOCK = 256
 _CUDA_SPANS = (32, 64, 128, 256, 384, 512, 640, 768)
+_CUDA_MAX_SPAN = 4096
 _CUDA_MAX_STARTS = 65535
+
+
+def _check_cuda_span(what: str, L: int) -> None:
+    if L > _CUDA_MAX_SPAN or L < 32 or L % 32:
+        raise ValueError(
+            f"CUDA {what} kernel supports max_span up to {_CUDA_MAX_SPAN}, a "
+            f"multiple of 32; got max_span={L} (reads of up to "
+            f"{_CUDA_MAX_SPAN - 2} bases)"
+        )
 
 
 def expand_flat_codes(flat: torch.Tensor, counts: torch.Tensor, nbw: int,
@@ -193,18 +207,13 @@ def blocked_sweep_pass(
     W, B, L = n_windows, block, max_span
     avail0i = _sweep_args(packed, counts, target, avail0, selend0, avail0i,
                           W, B, L, grid_offset, auto_target)
-    if L not in _CUDA_SPANS or B > _CUDA_MAX_BLOCK:
-        raise ValueError(
-            f"CUDA sweep kernel supports max_span in {_CUDA_SPANS} and "
-            f"block <= {_CUDA_MAX_BLOCK}; got max_span={L}, block={B}"
-        )
+    _check_cuda_span("sweep", L)
+    if B > _CUDA_MAX_BLOCK:
+        raise ValueError(f"CUDA sweep kernel supports block <= {_CUDA_MAX_BLOCK}; "
+                         f"got block={B}")
     nbw, _, cap = packed.shape
     # a group holds at most cap reads, so only a larger cap needs the count
-    if cap > _CUDA_MAX_STARTS and _max_starts(packed, B, L) > _CUDA_MAX_STARTS:
-        raise ValueError(
-            f"CUDA sweep kernel keeps arrival counts in uint16: at most "
-            f"{_CUDA_MAX_STARTS} reads of a window may start at one position"
-        )
+    wide_tile = cap > _CUDA_MAX_STARTS and _max_starts(packed, B, L) > _CUDA_MAX_STARTS
     dev = packed.device
     args = [t.contiguous() for t in (counts, packed, avail0, selend0, avail0i)]
     tgt = target.contiguous() if target is not None else None
@@ -213,17 +222,20 @@ def blocked_sweep_pass(
         torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)
     )
     lib = build.load_kernels()
-    with torch.cuda.device(dev):
-        rc = lib.gd_blocked_sweep(
-            args[0].data_ptr(), args[1].data_ptr(),
+    ptrs = (args[0].data_ptr(), args[1].data_ptr(),
             tgt.data_ptr() if tgt is not None else None,
             args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
             out.data_ptr(), availf.data_ptr(), selendf.data_ptr(),
             availfi.data_ptr(), nbw, W, cap, B, L, grid_offset,
-            int(auto_target), int(max_coverage),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check("gd_blocked_sweep", rc)
+            int(auto_target), int(max_coverage))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if L in _CUDA_SPANS and not wide_tile:
+            name, rc = "gd_blocked_sweep", lib.gd_blocked_sweep(*ptrs, stream)
+        else:
+            name, rc = "gd_blocked_sweep_wide", lib.gd_blocked_sweep_wide(
+                *ptrs, int(wide_tile), stream)
+    build.check(name, rc)
     blocked_sweep_pass.launches += 1
     return out, availf, selendf, availfi
 
@@ -354,10 +366,7 @@ def blocked_selection_pass(packed, counts, sel, xwin, n_windows, block,
         raise ValueError(f"no selection pass for device {packed.device}")
     W, B, L = n_windows, block, max_span
     _selection_args(packed, counts, sel, xwin, W, B, L)
-    if L not in _CUDA_SPANS:
-        raise ValueError(
-            f"CUDA selection kernel supports max_span in {_CUDA_SPANS}; got {L}"
-        )
+    _check_cuda_span("selection", L)
     nbw, _, cap = packed.shape
     dev = packed.device
     p, c, s, x = (t.contiguous() for t in (packed, counts, sel, xwin))

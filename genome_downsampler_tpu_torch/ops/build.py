@@ -37,6 +37,8 @@ _SIGNATURES = {
     #  out, availf, selendf, availfi,
     #  nbw, W, cap, B, L, grid_offset, auto_target, max_coverage, stream)
     "gd_blocked_sweep": [_P] * 10 + [_I] * 8 + [_P],
+    # gd_blocked_sweep's arguments, then wide_tile, stream
+    "gd_blocked_sweep_wide": [_P] * 10 + [_I] * 9 + [_P],
     # (packed, counts, sel, xwin, out, nbw, W, cap, B, L, stream)
     "gd_blocked_select": [_P] * 5 + [_I] * 5 + [_P],
     # (rows, target, avail0, selend0, out, takes, availf, selendf,
@@ -47,6 +49,9 @@ _SIGNATURES = {
     "gd_sweep_variant_b": [_P] * 3 + [_I] * 2 + [_P],
     # (packed, target, out, availf, selendf, nbw, W, cap, B, L, mode, stream)
     "gd_blocked_ablate": [_P] * 5 + [_I] * 6 + [_P],
+    # (bstart, bend1, off0, cap, pool, run_lo, run_hi, excess0, flow,
+    #  scalars, ws, n, B, R, phase_cap, stream)
+    "gd_ssp_solve": [_P] * 11 + [_I] * 4 + [_P],
 }
 
 

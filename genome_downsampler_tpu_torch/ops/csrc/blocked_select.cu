@@ -45,8 +45,8 @@
 // start_rel * L + span - 1 (start_rel < B, span <= L), SORTED ASCENDING,
 // equal codes in read-index order, as the packers emit them (io/csrc/
 // greedy.cpp, gd_pack_blocked and gd_pack_flat_direct); slots past
-// counts[t, w] are ignored and get 0; L one of 32, 64, 128, 256, 384,
-// 512, 640, 768. Output keeps the (t, w, slot) byte order of the packed
+// counts[t, w] are ignored and get 0; L a multiple of 32 up to 4096
+// (a template parameter for L <= 768, at run time above). Output keeps the (t, w, slot) byte order of the packed
 // array.
 
 #include <cuda_runtime.h>
@@ -61,11 +61,20 @@ using gd::kFull;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 
-// block-relative end of a code: start_rel + span - 1
+// block-relative end of a code: start_rel + span - 1. L = 0 instantiates
+// the kernel for an L known at run time (lrt), divided by the precomputed
+// multiply (c * magic) >> 40, magic = 2^40 / lrt + 1: exact (and the
+// product within 64 bits) for codes c < 2^40 / lrt, and codes are below
+// B * lrt <= 2^20
 template <int L>
-__device__ __forceinline__ int code_end(int c) {
-  const int sr = c / L;  // L is a constant: a multiply and a shift
-  return sr + (c - sr * L);
+__device__ __forceinline__ int code_end(int c, int lrt, uint64_t magic) {
+  if constexpr (L > 0) {
+    const int sr = c / L;  // L is a constant: a multiply and a shift
+    return sr + (c - sr * L);
+  } else {
+    const int sr = static_cast<int>((static_cast<uint64_t>(static_cast<uint32_t>(c)) * magic) >> 40);
+    return sr + (c - sr * lrt);
+  }
 }
 
 template <int L>
@@ -75,9 +84,10 @@ __global__ void __launch_bounds__(kThreads) blocked_select_kernel(
     const int32_t* __restrict__ sel,     // [W * nbw * B]
     const int32_t* __restrict__ xwin,    // [W, B + L]
     int8_t* __restrict__ out,            // [nbw, W, cap]
-    int64_t nbw, int64_t W, int64_t cap, int B) {
+    int64_t nbw, int64_t W, int64_t cap, int B, int lrt, uint64_t magic) {
   extern __shared__ int32_t smem[];
-  const int lring = B + L;
+  const int Lv = L > 0 ? L : lrt;
+  const int lring = B + Lv;
   int32_t* acc = smem;           // [B + L]: acc_t
   int32_t* hist = smem + lring;  // [kWarps][B + L]
 
@@ -94,13 +104,13 @@ __global__ void __launch_bounds__(kThreads) blocked_select_kernel(
   }
   for (int e = tid; e < kWarps * lring; e += kThreads) hist[e] = 0;
   __syncthreads();
-  const int K = 1 + (L - 2) / B;
+  const int K = 1 + (Lv - 2) / B;
   for (int64_t u = t > K ? t - K : 0; u < t; ++u) {
     const int cu = counts[u * W + w];
     const int32_t* __restrict__ gu = packed + (u * W + w) * cap;
     const int back = static_cast<int>(t - u) * B;
     for (int i = tid; i < cu; i += kThreads) {
-      const int e = code_end<L>(gu[i]) - back;
+      const int e = code_end<L>(gu[i], lrt, magic) - back;
       if (e >= 0) atomicAdd(&acc[e], 1);
     }
   }
@@ -120,7 +130,7 @@ __global__ void __launch_bounds__(kThreads) blocked_select_kernel(
   // pass 1: the range's reads per end
   for (int s0 = lo; s0 < hi; s0 += 32) {
     const int s = s0 + lane;
-    const int e = s < hi ? code_end<L>(g[s]) : -1;
+    const int e = s < hi ? code_end<L>(g[s], lrt, magic) : -1;
     const unsigned peers = __match_any_sync(kFull, e);
     if (e >= 0 && (peers & lower) == 0) hw[e] += __popc(peers);
     __syncwarp();
@@ -141,7 +151,7 @@ __global__ void __launch_bounds__(kThreads) blocked_select_kernel(
   // moves the base on
   for (int s0 = lo; s0 < hi; s0 += 32) {
     const int s = s0 + lane;
-    const int e = s < hi ? code_end<L>(g[s]) : -1;
+    const int e = s < hi ? code_end<L>(g[s], lrt, magic) : -1;
     const unsigned peers = __match_any_sync(kFull, e);
     if (e >= 0) {
       const int rank = hw[e] + __popc(peers & lower);
@@ -159,21 +169,24 @@ template <int L>
 cudaError_t launch_l(const int32_t* packed, const int32_t* counts,
                      const int32_t* sel, const int32_t* xwin, int8_t* out,
                      int64_t nbw, int64_t W, int64_t cap, int B,
-                     cudaStream_t stream) {
-  const size_t smem = sizeof(int32_t) * (1 + kWarps) * (B + L);
+                     cudaStream_t stream, int lrt = L) {
+  const size_t smem = sizeof(int32_t) * (1 + kWarps) * (B + lrt);
+  const uint64_t magic = (uint64_t{1} << 40) / static_cast<uint64_t>(lrt) + 1;
   auto kernel = blocked_select_kernel<L>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   kernel<<<(unsigned)(nbw * W), kThreads, smem, stream>>>(
-      packed, counts, sel, xwin, out, nbw, W, cap, B);
+      packed, counts, sel, xwin, out, nbw, W, cap, B, lrt, magic);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). L must be one of
-// 32, 64, 128, 256, 384, 512, 640, 768; groups code-sorted (see above).
+// Returns the cudaError_t of the launch (0 on success). L a multiple of 32
+// up to 4096 (32, 64, 128, 256, 384, 512, 640 and 768 have their own
+// instantiation, any other L the run-time one); groups code-sorted (see
+// above).
 extern "C" int gd_blocked_select(
     const void* packed, const void* counts, const void* sel, const void* xwin,
     void* out, int64_t nbw, int64_t W, int64_t cap, int64_t B, int64_t L,
@@ -199,8 +212,9 @@ extern "C" int gd_blocked_select(
     GD_CASE(512)
     GD_CASE(640)
     GD_CASE(768)
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:  // any other multiple of 32 up to 4096: L at run time
+      if (L < 32 || L > 4096 || L % 32 != 0) return (int)cudaErrorInvalidValue;
+      return (int)launch_l<0>(p, c, s, x, o, nbw, W, cap, b, st, (int)L);
   }
 #undef GD_CASE
 }

@@ -19,6 +19,7 @@ solver and to the host greedy.
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
 from genome_downsampler_tpu_torch.solvers.base import Solution, Solver
 from genome_downsampler_tpu_torch.utils.logging import get_logger
+from genome_downsampler_tpu_torch.utils.profiling import annotate
 from genome_downsampler_tpu_torch import _native
 from genome_downsampler_tpu_torch.device import resolve_device
 from genome_downsampler_tpu_torch.ops.blocked import (
@@ -40,20 +42,21 @@ _log = get_logger("torch.solvers.blocked_sweep")
 
 
 class _Phase:
-    """Wall-clock phase laps; each lap first waits for the device, so a
-    lap holds the device work queued in it."""
+    """Wall-clock phase laps, each a named profiler region; a lap ends by
+    waiting for the device, so it holds the device work queued in it."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.t = time.perf_counter()
         self.laps: dict[str, float] = {}
 
+    @contextlib.contextmanager
     def lap(self, what: str):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.laps[what] = now - self.t
-        self.t = now
+        t0 = time.perf_counter()
+        with annotate(f"blocked.{what}"):
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        self.laps[what] = time.perf_counter() - t0
         _log.debug("phase %s: %.4fs", what, self.laps[what])
 
 
@@ -147,7 +150,12 @@ class BlockedWindowedMcpSolver(Solver):
         (32 at >= 150x coverage on >= 1 Mb, where relaxation rounds grow
         with tie density); L grows to a 128-multiple >= span_max + 2 when a
         span reaches it (lane L-1 is reserved); B = 256 only where L is a
-        256-multiple and the TPU's selection tile fits its VMEM budget."""
+        256-multiple and the TPU's selection tile fits its VMEM budget.
+
+        One departure, where the JAX solver raises: W halves (a given
+        ``n_windows`` too) until a window is at least L long, since a read
+        may cross one window edge but not two (the carries and the
+        cross-window offsets hold one)."""
         L = self.max_span
         if span_max >= L:
             L = -(-(span_max + 2) // 128) * 128
@@ -158,11 +166,18 @@ class BlockedWindowedMcpSolver(Solver):
             wcap = 32 if deep else 64
             while W < wcap and n // (2 * W) >= 8 * 256:
                 W *= 2
-        B = self.block or (
-            128
-            if (W * 256 * (256 + L) * 4 > 14 * 2**20 or L % 256 != 0)
-            else 256
-        )
+
+        def block(W):
+            return self.block or (
+                128
+                if (W * 256 * (256 + L) * 4 > 14 * 2**20 or L % 256 != 0)
+                else 256
+            )
+
+        B = block(W)
+        while W > 1 and -(-(-(-n // W)) // B) * B < L:  # the packer's window
+            W //= 2
+            B = block(W)
         chunk = self.chunk or (128 if B <= 128 else 256)
         return W, B, L, chunk
 
@@ -172,63 +187,63 @@ class BlockedWindowedMcpSolver(Solver):
             return np.zeros(0, np.int64)
         dev = self.device
         ph = _Phase(dev)
-        start = np.asarray(batch.start, np.int64)
-        end = np.asarray(batch.end, np.int64)
-        span_max = int((end - start).max()) + 1
-        # mean span from a 4096-read sample: only the >= 150x rule reads it
-        density = float(len(start)) * max(
-            float(np.mean((end[:4096] - start[:4096]) + 1)), 1.0
-        ) / max(n, 1)
-        W, B, L, chunk = self._geometry(n, span_max, density)
-        if B * L <= 1 << 16:
-            flat, counts, win, _, cap, slots = _native.pack_flat_direct(
-                start, end, n, W, B, L, cap_multiple=chunk, cap_floor=2 * chunk,
-            )
-            packed = None
-        else:
-            packed, counts, win, _, slots = _native.pack_blocked(
-                start, end, n, W, B, L, cap_multiple=chunk, cap_floor=2 * chunk,
-            )
-            cap = packed.shape[2]
-        # slots is a C-arena view consumed at the end of the solve
-        arena_gen0 = _native.arena_generation()
-        xwin = _cross_window_offsets(start, end, win, W, B, L)
-        nbw = win // B
-        ph.lap("pack")
+        with ph.lap("pack"):
+            start = np.asarray(batch.start, np.int64)
+            end = np.asarray(batch.end, np.int64)
+            span_max = int((end - start).max()) + 1
+            # mean span from a 4096-read sample: only the >= 150x rule reads it
+            density = float(len(start)) * max(
+                float(np.mean((end[:4096] - start[:4096]) + 1)), 1.0
+            ) / max(n, 1)
+            W, B, L, chunk = self._geometry(n, span_max, density)
+            if B * L <= 1 << 16:
+                flat, counts, win, _, cap, slots = _native.pack_flat_direct(
+                    start, end, n, W, B, L, cap_multiple=chunk, cap_floor=2 * chunk,
+                )
+                packed = None
+            else:
+                packed, counts, win, _, slots = _native.pack_blocked(
+                    start, end, n, W, B, L, cap_multiple=chunk, cap_floor=2 * chunk,
+                )
+                cap = packed.shape[2]
+            # slots is a C-arena view consumed at the end of the solve
+            arena_gen0 = _native.arena_generation()
+            xwin = _cross_window_offsets(start, end, win, W, B, L)
+            nbw = win // B
 
-        # torch.tensor copies, so nothing on the device aliases the arenas
-        counts_d = torch.tensor(counts, device=dev)
-        xwin_d = torch.tensor(xwin, device=dev)
-        if packed is None:
-            # uint16 has thin torch support: ship the bits as int16
-            codes_d = torch.tensor(flat.view(np.int16), device=dev)
-        else:
-            codes_d = torch.tensor(packed, device=dev)
-        ph.lap("h2d")
+        with ph.lap("h2d"):
+            # torch.tensor copies, so nothing on the device aliases the arenas
+            counts_d = torch.tensor(counts, device=dev)
+            xwin_d = torch.tensor(xwin, device=dev)
+            if packed is None:
+                # uint16 has thin torch support: ship the bits as int16
+                codes_d = torch.tensor(flat.view(np.int16), device=dev)
+            else:
+                codes_d = torch.tensor(packed, device=dev)
 
-        p32 = (
-            expand_flat_codes(codes_d, counts_d, nbw, W, cap)
-            if packed is None else codes_d
-        )
-        sel, rounds = blocked_windowed_sweep(
-            p32, counts_d, None, W, B, L,
-            auto_target=True, max_coverage=int(max_coverage),
-        )
-        ph.lap("sweep")
-        selbytes = blocked_selection_pass(p32, counts_d, sel, xwin_d, W, B, L)
-        n_selected_d = selbytes.sum(dtype=torch.int64)
-        bits_d = pack_bits(selbytes)
-        ph.lap("select")
-        bits = bits_d.cpu().numpy()
-        n_selected = int(n_selected_d)
-        ph.lap("d2h")
+        with ph.lap("sweep"):
+            p32 = (
+                expand_flat_codes(codes_d, counts_d, nbw, W, cap)
+                if packed is None else codes_d
+            )
+            sel, rounds = blocked_windowed_sweep(
+                p32, counts_d, None, W, B, L,
+                auto_target=True, max_coverage=int(max_coverage),
+            )
+        with ph.lap("select"):
+            selbytes = blocked_selection_pass(p32, counts_d, sel, xwin_d, W, B, L)
+            n_selected_d = selbytes.sum(dtype=torch.int64)
+            bits_d = pack_bits(selbytes)
+        with ph.lap("d2h"):
+            bits = bits_d.cpu().numpy()
+            n_selected = int(n_selected_d)
         if _native.arena_generation() != arena_gen0:
             raise RuntimeError(
                 "native pack arenas were overwritten mid-solve "
                 "(interleaved pack call); slots view is stale"
             )
-        out = _native.mask_select(bits, slots)
-        ph.lap("bit test")
+        with ph.lap("bit test"):
+            out = _native.mask_select(bits, slots)
         self.last_stats = {
             "rounds": rounds, "n_windows": W, "block": B, "max_span": L,
             "cap": cap, "positions_per_pass": win, "device": str(dev),

@@ -32,6 +32,7 @@ import torch
 from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
 from genome_downsampler_tpu_torch.solvers.base import Solution, Solver
 from genome_downsampler_tpu_torch.utils.logging import get_logger
+from genome_downsampler_tpu_torch.utils.profiling import annotate
 from genome_downsampler_tpu_torch import _native
 from genome_downsampler_tpu_torch.device import resolve_device
 from genome_downsampler_tpu_torch.ops.coverage import (
@@ -203,14 +204,16 @@ class McpDeviceSweepSolver(Solver):
             self.last_stats = dict(blocked.last_stats, engine="blocked")
             return out
         t0 = time.perf_counter()
-        sel_per_end = _dense_pipeline(
-            batch, n, int(max_coverage), self.max_span, self.device
-        ).cpu().numpy()
+        with annotate("dense.sweep"):
+            sel_per_end = _dense_pipeline(
+                batch, n, int(max_coverage), self.max_span, self.device
+            ).cpu().numpy()
         t1 = time.perf_counter()
-        out = reconstruct_selection(
-            np.asarray(batch.start, np.int64), np.asarray(batch.end, np.int64),
-            sel_per_end,
-        )
+        with annotate("dense.reconstruct"):
+            out = reconstruct_selection(
+                np.asarray(batch.start, np.int64), np.asarray(batch.end, np.int64),
+                sel_per_end,
+            )
         t2 = time.perf_counter()
         self.last_stats = {
             "engine": "dense", "max_span": self.max_span,

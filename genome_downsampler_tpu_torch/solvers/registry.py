@@ -4,8 +4,8 @@ The registry class and the CPU names are the JAX package's
 (``solvers/registry.py``), copied here with the host solvers they build.
 The accelerator names are ``*-cuda``: ``quasi-mcp-cuda`` is the
 reference's own name for its accelerator solver; ``mcp-cuda``,
-``mcp-cuda-blocked`` and ``qmcp-sweep-cuda`` mirror ``mcp-tpu``,
-``mcp-tpu-blocked`` and ``qmcp-sweep-tpu``. ``mcp-cuda`` and
+``mcp-cuda-blocked``, ``qmcp-sweep-cuda`` and ``qmcp-cuda`` mirror
+``mcp-tpu``, ``mcp-tpu-blocked``, ``qmcp-sweep-tpu`` and ``qmcp-tpu``. ``mcp-cuda`` and
 ``quasi-mcp-cuda`` run the dense engine up to 262,144 bases and the blocked
 engine above, and refuse reads longer than 256 bases; ``mcp-cuda-blocked``
 always runs the blocked engine, which grows its span bound for longer
@@ -111,6 +111,14 @@ def _make_qmcp_sweep_cuda() -> Solver:
     return QmcpDeviceSweepSolver(device="cuda")
 
 
+def _make_qmcp_cuda() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.device_mcmf import (
+        QmcpDeviceMcmfSolver,
+    )
+
+    return QmcpDeviceMcmfSolver(device="cuda")
+
+
 def default_registry() -> SolverRegistry:
     reg = SolverRegistry()
     reg.register("quasi-mcp-cpu", _make_greedy, uses_quality=False)
@@ -125,5 +133,7 @@ def default_registry() -> SolverRegistry:
     reg.register("mcp-cuda-blocked", _make_mcp_cuda_blocked, uses_quality=False)
     # minimum count, then identities by quality from the sweep's takes
     reg.register("qmcp-sweep-cuda", _make_qmcp_sweep_cuda, uses_quality=True)
+    # the exact weighted optimum: successive shortest paths in one kernel
+    reg.register("qmcp-cuda", _make_qmcp_cuda, uses_quality=True)
     reg.register("test", _make_test, uses_quality=False)
     return reg

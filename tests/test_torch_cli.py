@@ -1,5 +1,7 @@
 """The port's CLI against the JAX package's CLI, BAM -> BAM."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -78,7 +80,16 @@ def test_cli_refuses_unported_flags(bam, tmp_path, flags, monkeypatch):
     errors = []
     monkeypatch.setattr(cli_main._log, "error", lambda fmt, *a: errors.append(fmt % a))
     out = tmp_path / "out.bam"
+    flags = [str(tmp_path / f) if f == "prof" else f for f in flags]
     rc = main([str(bam), "15", "-o", str(out), "-a", "mcp-cpu", *FILTERS, *flags])
+    if flags[0] == "--profile-dir":
+        # ported: a torch.profiler trace of the solve, written on the CPU,
+        # and the same records as without it
+        assert rc == 0 and not errors
+        trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
+        assert trace["traceEvents"]
+        assert out.read_bytes() == _run(main, bam, tmp_path / "plain.bam", "mcp-cpu")
+        return
     assert rc != 0 and not out.exists()
     if flags[0] == "--windows":
         # ported: refused only beside a name that would ignore it, with the

@@ -187,15 +187,209 @@ def test_sweep_kernel_b_takes_groups_beyond_32768_codes(cuda, hot, spread):
             assert torch.equal(g, r)
 
 
-def test_sweep_kernel_b_rejects_more_than_65535_starts_at_one_position(cuda):
-    W, B, L, cap = 2, 64, 64, 65536
-    p = torch.full((2, W, cap), -1, dtype=torch.int32, device=cuda)
-    p[1, 0] = 5 * L + 3  # 65,536 reads starting at position 5 of block 1
-    c = torch.tensor([[0, 0], [cap, 0]], dtype=torch.int32, device=cuda)
-    z = torch.zeros((W, L), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="65535"):
-        blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, auto_target=True,
-                                   max_coverage=3)
+@pytest.mark.parametrize("hot", [70_000, 100_000])
+def test_sweep_kernel_b_takes_more_than_65535_starts_at_one_position(cuda, hot):
+    """More reads of a window start at one position than uint16 counts: the
+    wrapper counts them and launches the wide path with an int32 tile."""
+    rng = np.random.default_rng(hot)
+    W, B, L, n = 2, 64, 64, 256
+    start = rng.integers(0, n - L, 2 * n)
+    end = np.concatenate([start + rng.integers(0, L - 1, start.shape[0]),
+                          np.full(hot, B + 35)])
+    start = np.concatenate([start, np.full(hot, B + 5)])
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                         cap_multiple=64)
+    assert np.bincount(start).max() > 65535
+    assert blocked._max_starts(torch.tensor(packed), B, L) > 65535
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    m = 80_000
+    for auto, seeded in ((True, False), (False, True)):
+        target = None if auto else torch.tensor(
+            _native.capped_target(start, end, n_pad, m).reshape(W, win), device=cuda)
+        g = np.random.default_rng(1)
+        carries = [torch.tensor(g.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                                else np.zeros((W, L), np.int32), device=cuda)
+                   for _ in range(3)]
+        kw = dict(avail0i=carries[2], auto_target=auto, max_coverage=m if auto else 0)
+        n0 = blocked.blocked_sweep_pass.launches
+        got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+        torch.cuda.synchronize()
+        assert blocked.blocked_sweep_pass.launches == n0 + 1
+        ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B,
+                                               L, **kw)
+        for g_, r in zip(got, ref):
+            assert torch.equal(g_, r)
+        assert int(ref[0].max()) > 65535
+
+
+def _long_case(L, seed, B=128, W=4):
+    """W windows of max(4 B, L) positions (a window at least L long), about
+    2 reads starting per position with spans 1..L-1."""
+    rng = np.random.default_rng(seed)
+    win = max(4 * B, -(-L // B) * B)
+    n = W * win
+    start = rng.integers(0, n - L, 2 * n)
+    end = start + rng.integers(0, L - 1, 2 * n)
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                         cap_multiple=64)
+    return start, end, W, B, win, n_pad, packed, counts
+
+
+@pytest.mark.parametrize("auto,grid_offset,seeded", [(True, 0, False), (False, 1, True),
+                                                     (True, 2, True)])
+@pytest.mark.parametrize("L", [896, 1024, 2048, 4096])
+def test_sweep_kernel_b_long_spans_match_plain(cuda, L, auto, grid_offset, seeded):
+    """L above the register path's 768: the wide path, rings in shared
+    memory, uint16 tile."""
+    start, end, W, B, win, n_pad, packed, counts = _long_case(L, L)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    m = 9
+    target = None if auto else torch.tensor(
+        _native.capped_target(start, end, n_pad, m).reshape(W, win), device=cuda)
+    rng = np.random.default_rng(L + grid_offset)
+    carries = [torch.tensor(rng.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                            else np.zeros((W, L), np.int32), device=cuda)
+               for _ in range(3)]
+    kw = dict(grid_offset=grid_offset, avail0i=carries[2], auto_target=auto,
+              max_coverage=m if auto else 0)
+    got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B, L,
+                                           **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert ref[0].any()
+
+
+@pytest.mark.parametrize("L", [896, 1024, 2048, 4096])
+def test_select_kernel_long_spans_match_plain_and_argsort(cuda, L):
+    """Kernel C's run-time-L instantiation (L above 768)."""
+    start, end, W, B, win, n_pad, packed, counts = _long_case(L, L + 1)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                            max_coverage=9)
+    xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=cuda)
+    assert xwin.any()
+    got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B, L))
+    bits, n_sel = _selection_mask(p, sel, W, B, L, win)
+    assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel > 0
+
+
+@pytest.mark.parametrize("span", [1000, 4094])
+def test_blocked_solver_cuda_long_reads_match_host_greedy(cuda, span):
+    """mcp-cuda-blocked on reads of up to 1,000 (L = 1,024) and 4,094 bases
+    (L = 4,096): the read set of mcp-cpu."""
+    from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    rng = np.random.default_rng(span)
+    n, r = 300_000, 60_000
+    start = rng.integers(0, n - span, r)
+    end = start + rng.integers(0, span, r)
+    batch = ReadBatch(bam_id=np.arange(r), start=start, end=end,
+                      quality=np.full(r, 50, np.int64), seq_length=end - start + 1,
+                      is_first=np.tile([True, False], r // 2), ref_genome_length=n)
+    reg = default_registry()
+    solver = reg.get("mcp-cuda-blocked")
+    for m in (5, 30):
+        sel = solver.solve(m, batch)
+        np.testing.assert_array_equal(sel, reg.get("mcp-cpu").solve(m, batch))
+        assert solver.inner.last_stats["max_span"] == -(-(span + 2) // 128) * 128
+
+
+def _ssp_inputs(seed):
+    """The SSP network of seeded reads: seeds 0-5 are the inputs of the JAX
+    suite's random LP cases (N = 600), 6 and 7 cuts of config-1 at its depth
+    to 1,500 and 10,000 bases (7 spans three of the kernel's 4,096-node scan
+    tiles, so the carries between tiles are held to the twin)."""
+    from genome_downsampler_tpu_torch.solvers.device_mcmf import (
+        _node_excess,
+        _run_tables,
+        build_convex_buckets,
+    )
+
+    rng = np.random.default_rng(seed)
+    if seed < 6:
+        r = int(rng.integers(8, 300))
+        start = rng.integers(0, 600, r)
+        end = np.minimum(start + rng.integers(1, 150, r), 599)
+        cost, n, m = rng.integers(1, 60, r), 600, int(rng.integers(1, 9))
+    else:
+        pairs, n = (1254, 1500) if seed == 6 else (8360, 10_000)
+        b = rand_reads_uniform(np.random.default_rng(12345), pairs, n, 150)
+        start, end = np.asarray(b.start, np.int64), np.asarray(b.end, np.int64)
+        q = np.asarray(b.quality, np.int64)
+        cost, m = q.max() - q + 1, 100
+    bs, be, off, pool, _, first = build_convex_buckets(start, end, cost)
+    B = bs.shape[0]
+    excess = _node_excess(bs, be, np.diff(off), n, m)
+    lo, hi = _run_tables(pool, first)
+    arrays = [bs, be + 1, off[:B], np.diff(off), pool, lo, hi, excess]
+    return ([torch.tensor(np.ascontiguousarray(a, np.int32)) for a in arrays],
+            int(excess[excess > 0].sum()))
+
+
+def _ssp_equal(cuda, arrays, phase_cap):
+    from genome_downsampler_tpu_torch.ops import ssp
+
+    n0 = ssp.ssp_solve.launches
+    got = ssp.ssp_solve(*(a.to(cuda) for a in arrays), phase_cap)
+    torch.cuda.synchronize()
+    assert ssp.ssp_solve.launches == n0 + 1
+    ref = ssp.ssp_solve_plain(*arrays, phase_cap)
+    assert torch.equal(got[0].cpu(), ref[0]) and got[1:] == ref[1:]
+    return got
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_ssp_kernel_matches_plain(cuda, seed):
+    from genome_downsampler_tpu_torch.ops import ssp
+
+    arrays, supply0 = _ssp_inputs(seed)
+    _, supply, status, phases, rounds = _ssp_equal(cuda, arrays, supply0 + 16)
+    assert (supply, status) == (0, ssp.OK) and rounds >= phases >= 1
+    # cut short: the same status, DEGENERATE with supply left, from both
+    if supply0 > 1:
+        assert _ssp_equal(cuda, arrays, 1)[2] == ssp.DEGENERATE
+
+
+def test_ssp_kernel_reports_an_infeasible_network(cuda):
+    """One unit at node 0 and its demand at node 10, one bucket arc 5 -> 6:
+    no residual path from 0 reaches 10."""
+    from genome_downsampler_tpu_torch.ops import ssp
+
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    excess = torch.zeros(11, dtype=torch.int32)
+    excess[0], excess[10] = 1, -1
+    arrays = [i32(5), i32(6), i32(0), i32(1), i32(1), i32(0), i32(0), excess]
+    assert _ssp_equal(cuda, arrays, 17)[2] == ssp.INFEASIBLE
+
+
+def test_qmcp_cuda_matches_qmcp_cpu_in_cost(cuda):
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+    from genome_downsampler_tpu_torch.testing.fixtures import small_example_batch
+
+    reg = default_registry()
+    for batch, m in ((rand_reads_uniform(np.random.default_rng(12345), 2508, 3000, 150), 100),
+                     (small_example_batch(), 4)):
+        q = np.asarray(batch.quality, np.int64)
+        cost = q.max() - q + 1
+        solver = reg.get("qmcp-cuda")
+        sel = solver.solve(m, batch)
+        host = reg.get("qmcp-cpu").solve(m, batch)
+        assert cost[sel].sum() == cost[host].sum()
+        st = solver.inner.last_stats
+        assert st["engine"] == "device"
+        n = batch.ref_genome_length
+        cov_in = np.zeros(n + 1, np.int64)
+        np.add.at(cov_in, batch.start, 1)
+        np.add.at(cov_in, batch.end + 1, -1)
+        cov = np.zeros(n + 1, np.int64)
+        np.add.at(cov, batch.start[sel], 1)
+        np.add.at(cov, batch.end[sel] + 1, -1)
+        assert np.all(np.cumsum(cov) >= np.minimum(np.cumsum(cov_in), m))
 
 
 @pytest.mark.parametrize("geometry", ["small", "clumped", "config4", "span384"])
@@ -259,13 +453,20 @@ def test_select_kernel_takes_groups_of_40000_and_70000_codes(cuda, hot, spread):
     assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel > 0
 
 
-def test_select_kernel_rejects_unsupported_span(cuda):
+@pytest.mark.parametrize("L", [48, 4128])
+def test_select_kernel_rejects_unsupported_span(cuda, L):
+    """Not a multiple of 32, or above 4096: kernels B and C refuse, naming
+    the bound."""
     p = torch.full((1, 1, 64), -1, dtype=torch.int32, device=cuda)
     c = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     sel = torch.zeros(64, dtype=torch.int32, device=cuda)
-    xwin = torch.zeros((1, 64 + 48), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="max_span"):
-        blocked.blocked_selection_pass(p, c, sel, xwin, 1, 64, 48)
+    xwin = torch.zeros((1, 64 + L), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="max_span up to 4096"):
+        blocked.blocked_selection_pass(p, c, sel, xwin, 1, 64, L)
+    z = torch.zeros((1, L), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="max_span up to 4096"):
+        blocked.blocked_sweep_pass(p, c, None, z, z, 1, 64, L, avail0i=z,
+                                   auto_target=True, max_coverage=3)
 
 
 def test_solver_cuda_matches_cpu_and_host_greedy(cuda):

@@ -36,6 +36,9 @@ required = {
     "genome_downsampler_tpu_torch.scripts.kernel_variants",
     "genome_downsampler_tpu_torch.solvers.batched",
     "genome_downsampler_tpu_torch.solvers.device_sweep",
+    "genome_downsampler_tpu_torch.ops.ssp",
+    "genome_downsampler_tpu_torch.solvers.device_mcmf",
+    "genome_downsampler_tpu_torch.utils.profiling",
 }
 assert required <= set(names), sorted(required - set(names))
 assert len(names) >= 40, names

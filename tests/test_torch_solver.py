@@ -18,6 +18,7 @@ from genome_downsampler_tpu_torch.solvers import blocked_sweep
 from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
     BlockedWindowedMcpSolver,
 )
+from genome_downsampler_tpu_torch.solvers.native_greedy import NativeGreedyMcpSolver
 from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
 KW = dict(n_windows=4, block=64, max_span=64, chunk=64)
@@ -89,6 +90,23 @@ def test_default_geometry_span_upgrade_matches_greedy_and_jax():
     np.testing.assert_array_equal(
         sel, JaxBlockedSolver(interpret=True).solve(4, batch)
     )
+
+
+@pytest.mark.parametrize("n,span,W", [(4096, 1400, 8), (40_000, 1000, None),
+                                      (40_000, 4094, None)])
+def test_windows_shorter_than_a_read_shrink_to_fit(n, span, W):
+    """A read may cross one window edge, not two: where a window would be
+    shorter than L (the JAX solver raises there), W halves until it is not,
+    a given n_windows too; the selection stays mcp-cpu's (the host C++
+    greedy)."""
+    rng = np.random.default_rng(span)
+    start = rng.integers(0, n - span, n // 4)
+    batch = _batch(start, start + rng.integers(0, span, n // 4), n)
+    solver = BlockedWindowedMcpSolver("cpu", n_windows=W)
+    sel = solver.solve(5, batch)
+    st = solver.last_stats
+    assert st["positions_per_pass"] >= st["max_span"] >= span
+    np.testing.assert_array_equal(sel, NativeGreedyMcpSolver().solve(5, batch))
 
 
 def test_geometry_is_the_jax_geometry():
