@@ -56,14 +56,17 @@ package. Phases, each of which raises on failure:
     timed through ``scripts.bench_kernel_ablate``'s ``run`` at its default
     (6M reads, W=64, B=128, L=256), beside kernel B's time per position,
     and each equal to its twin on the first blocks of that default;
-13. the SSP kernel (``qmcp-cuda``'s whole solve, one launch) == its twin in
-    flows, supply, status, phases and rounds on the six seeded inputs of the
-    JAX suite's random LP cases (N=600), on the 3,000-base cut of config-1
-    (2,508 pairs, M=100) and on config-1 itself (eight 4,096-node scan
-    tiles), status OK; timed on config-1 and on the cut;
+13. the SSP kernel (``qmcp-cuda``'s whole solve, one cooperative launch
+    of up to one CTA per SM) == its twin in flows, supply, status, phases
+    and rounds on the six seeded inputs of the JAX suite's random LP cases
+    (N=600), the card tests' four CTA-boundary cases (ragged and small
+    chunks, spans up to 1,000, stacked amplicons), the 3,000-base cut of
+    config-1 (2,508 pairs, M=100) and config-1 itself (117 CTAs), status
+    OK; timed on config-1, the cut and the QMCP edge;
 14. ``qmcp-cuda`` through the registry against ``qmcp-cpu`` (the host C++
-    MCMF), each warmed on other data: config-1 and the device limit's edge
-    at config-1's depth (109,583 pairs over 131,072 bases), total cost
+    MCMF), each warmed on other data: config-1, 32,768 and 65,536 bases and
+    the device limit's edge at config-1's depth (109,583 pairs over 131,072
+    bases), total cost
     equal, coverage valid, ``engine == "device"``, one SSP launch a solve; a 262,144-base genome goes to the host engine;
 15. the profiler (``utils.profiling.trace``) around one warm config-4
     ``mcp-cuda`` solve and one warm config-1 ``qmcp-cuda`` solve: the
@@ -98,7 +101,8 @@ holds a main-path kernel against another version of its source (an earlier
 commit's, written out with ``git show <commit>:genome_downsampler_tpu_torch/
 ops/csrc/dense_sweep.cu``): the kernel is the one whose C entry the other
 source defines (``gd_dense_sweep``: kernel A, ``gd_blocked_sweep``: kernel
-B, ``gd_blocked_select``: kernel C). Each other source is built into its
+B, ``gd_blocked_select``: kernel C, ``gd_ssp_solve``: the SSP kernel, whose
+one-CTA version's entry is also taken). Each other source is built into its
 own library under ``build/against/``, and the port's source of the same
 kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
 per instantiation are printed). Phases 1 and 2 run, then each version is
@@ -106,7 +110,9 @@ held bit-equal to the port's and the two are timed in turns (other, port,
 port, other) at its kernel's cells: kernel A at config-1 (counts and takes
 mode), the edge and 32 rows of 32,768 positions at config-4's depth;
 kernel B on the config-4 full pass and tail slice; kernel C on the config-4
-full pass. It ends with the turns' JSON object instead of the three lines.
+full pass; the SSP kernel on the 3,000-base cut, config-1 and the QMCP edge
+(once a turn there). It ends with the turns' JSON object instead of the
+three lines.
 """
 
 from __future__ import annotations
@@ -157,9 +163,12 @@ SELECT_OPS = 8
 # each, moved once; 8 int32 operations per node and per bucket side
 SSP_NODE_ARRAYS, SSP_BUCKET_ARRAYS, SSP_OPS = 4, 6, 8
 # qmcp cells (pairs of 150 bp reads, genome, M): the 3,000-base cut of
-# config-1 the SSP kernel is timed on, the device limit's edge and a genome
-# above it, all at config-1's depth
+# config-1 the SSP kernel is timed on, 32,768 and 65,536 bases (where
+# qmcp-cuda and qmcp-cpu cross), the device limit's edge and a genome above
+# it, all at config-1's depth
 SSP_CUT = (2_508, 3_000, 100)
+QMCP_32K = (27_395, 32_768, 100)
+QMCP_64K = (54_791, 65_536, 100)
 QMCP_EDGE = (109_583, 131_072, 100)
 QMCP_HOST = (219_166, 262_144, 100)
 PROFILE_DIR = ROOT / "build" / "profile"
@@ -375,7 +384,7 @@ def start_against_builds(paths):
 # (slots per lane and the target or takes mode; L for kernel C), spills and
 # registers
 PTXAS_ENTRY = re.compile(
-    r"Compiling entry function '[^']*?(blocked_sweep|dense_sweep|blocked_select)_kernel"
+    r"Compiling entry function '[^']*?(blocked_sweep|dense_sweep|blocked_select|ssp)_kernel"
     r"(?:ILi(\d+)E(?:Lb(\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
     r"loads.*?Used (\d+) registers", re.S)
 
@@ -399,16 +408,18 @@ def finish_against_builds(procs):
             lib = ctypes.CDLL(str(cmd[cmd.index("-o") + 1]))
             fn = getattr(lib, entry)
             fn.restype = ctypes.c_int
-            fn.argtypes = build._SIGNATURES[entry]
+            fn.argtypes = against_signature(label, entry)
             libs[label] = (entry, lib)
     return libs
 
 
 def in_turns(dev, lib, port, checks, timed, report):
     """``lib`` against the port's library: every run in ``checks`` bit-equal,
-    then each of ``timed`` (``{cell: (run, positions)}``, ``run(library)``
-    launching the kernel once, uncounted) timed in turns: other, port, port,
-    other. Returns ``{"other cell": [ms, ms], "port cell": [ms, ms], ...}``."""
+    then each of ``timed`` (``{cell: (run, positions)}`` or ``(run, count,
+    reps, unit)``, ``run(library)`` launching the kernel once, uncounted)
+    timed in turns: other, port, port, other, each the least of ``reps``
+    launches (5; 1 is timed without a warm launch). Returns ``{"other cell":
+    [ms, ms], "port cell": [ms, ms], ...}``."""
     from genome_downsampler_tpu_torch.scripts import best_ms
 
     for run in checks:
@@ -417,11 +428,12 @@ def in_turns(dev, lib, port, checks, timed, report):
     times = {}
     for turn, (who, which) in enumerate((("other", lib), ("port", port), ("port", port),
                                          ("other", lib))):
-        for cell, (run, positions) in timed.items():
-            ms = best_ms(lambda: run(which), dev)[1]
+        for cell, spec in timed.items():
+            run, count, reps, unit = (*spec, 5, "position")[:4]
+            ms = best_ms(lambda: run(which), dev, reps, warm=reps > 1)[1]
             times.setdefault(f"{who} {cell}", []).append(ms)
             log(f"  turn {turn} {who} {cell}: {ms:.4f} ms, "
-                f"{1e6 * ms / positions:.2f} ns/position  [{report}]")
+                f"{1e6 * ms / count:.2f} ns/{unit}  [{report}]")
     return times
 
 
@@ -531,11 +543,60 @@ def turns_blocked_select(dev, c4):
     return [run], {"config-4": (run, nbw * B)}
 
 
+def turns_ssp(dev, c4):
+    """The SSP kernel's cells: the 3,000-base cut, config-1 and the QMCP
+    edge, flows and (supply, status, phases, rounds) bit-equal on each; the
+    edge timed once a turn (the one-CTA kernel takes about a minute there),
+    config-1 the least of 3. An other source whose entry takes the one-CTA
+    kernel's 16 arguments is called with that kernel's workspace."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import build, ssp
+    from genome_downsampler_tpu_torch.scripts.ssp_round_split import (
+        ONE_CTA_SIGNATURE,
+        one_cta_launch,
+    )
+    from genome_downsampler_tpu_torch.testing.ssp_cases import quality_cost, ssp_network
+
+    def run(lib, arrays, cap):
+        one_cta = len(lib.gd_ssp_solve.argtypes) == len(ONE_CTA_SIGNATURE)
+        out = one_cta_launch(lib, arrays, cap) if one_cta else ssp.launch(lib, *arrays, cap)
+        return [out[0], torch.tensor(out[1:])]
+
+    checks, timed = [], {}
+    for name, (pairs, n, m), reps in (("3,000-base cut", SSP_CUT, 5), ("config-1", C1, 3),
+                                      ("QMCP edge", QMCP_EDGE, 1)):
+        b = uniform_batch(pairs, n)
+        arrays, supply = ssp_network(b.start, b.end, quality_cost(b.quality), n, m)
+        arrays = [a.to(dev) for a in arrays]
+        rounds = ssp.launch(build.load_kernels(), *arrays, supply + 16)[4]
+        go = lambda lib, a=arrays, cap=supply + 16: run(lib, a, cap)  # noqa: E731
+        checks.append(go)
+        timed[name] = (go, rounds, reps, "round")
+    return checks, timed
+
+
 # the kernels --against takes, by the C entry the other source defines: the
 # port's source of the kernel and the function that makes its cells
 AGAINST_KERNELS = {"gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
                    "gd_blocked_sweep": ("blocked_sweep.cu", turns_blocked_sweep),
-                   "gd_blocked_select": ("blocked_select.cu", turns_blocked_select)}
+                   "gd_blocked_select": ("blocked_select.cu", turns_blocked_select),
+                   "gd_ssp_solve": ("ssp.cu", turns_ssp)}
+def against_signature(path, entry):
+    """The ctypes argument types of ``entry`` as the source at ``path``
+    declares it: the port's, or an earlier version's of the same count
+    (the one-CTA SSP kernel's)."""
+    from genome_downsampler_tpu_torch.ops import build
+    from genome_downsampler_tpu_torch.scripts.ssp_round_split import ONE_CTA_SIGNATURE
+
+    earlier = {"gd_ssp_solve": [ONE_CTA_SIGNATURE]}
+
+    decl = re.search(rf'extern\s+"C"\s+int\s+{entry}\s*\(([^)]*)\)', Path(path).read_text())
+    nargs = decl.group(1).count(",") + 1
+    for sig in (build._SIGNATURES[entry], *earlier.get(entry, ())):
+        if len(sig) == nargs:
+            return sig
+    raise ValueError(f"{path}: {entry} takes {nargs} arguments, no known version does")
 
 
 def phase_turns(dev, c4, libs, report):
@@ -1180,27 +1241,6 @@ def phase_ablate(dev, report, b_ns):
     }
 
 
-def ssp_network(start, end, cost, n, m):
-    """The SSP kernel's int32 inputs for reads (start, end, cost) at M=m,
-    and its phase cap (supply + 16), as ``ssp_device_flows`` builds them."""
-    import numpy as np
-    import torch
-
-    from genome_downsampler_tpu_torch.solvers.device_mcmf import (
-        _node_excess,
-        _run_tables,
-        build_convex_buckets,
-    )
-
-    bs, be, off, pool, _, first = build_convex_buckets(start, end, cost)
-    B = bs.shape[0]
-    excess = _node_excess(bs, be, np.diff(off), n, m)
-    lo, hi = _run_tables(pool, first)
-    arrays = [bs, be + 1, off[:B], np.diff(off), pool, lo, hi, excess]
-    return ([torch.tensor(np.ascontiguousarray(a, np.int32)) for a in arrays],
-            int(excess[excess > 0].sum()) + 16)
-
-
 def ssp_bound(n, B, rounds):
     """The SSP kernel's bound on this run: per fixpoint round the node and
     bucket arrays moved once and SSP_OPS operations a node and bucket side."""
@@ -1208,23 +1248,25 @@ def ssp_bound(n, B, rounds):
                  rounds * 4 * (SSP_NODE_ARRAYS * (n + 1) + SSP_BUCKET_ARRAYS * B))
 
 
-def quality_cost(batch):
-    import numpy as np
-
-    q = np.asarray(batch.quality, np.int64)
-    return q.max() - q + 1
-
-
 def phase_ssp_kernel(dev, report):
     """The SSP kernel against its twin on the JAX suite's six random LP
-    inputs, the 3,000-base cut and config-1 (n + 1 = 29,904 nodes, eight of
-    the kernel's 4,096-node scan tiles, so the carries between tiles are
-    held to the twin); timed on config-1, the shape the main path gives it,
-    and on the cut. Returns its entry."""
+    inputs, the card tests' four CTA-boundary cases, the 3,000-base cut and
+    config-1 (n + 1 = 29,904 nodes over 117 CTAs of 256, so the carries
+    between CTAs are held to the twin); timed on config-1, the shape the
+    main path gives it, on the cut, and on the QMCP edge (no twin there:
+    phase 14 holds the solve to qmcp-cpu, ``--against`` the kernel to an
+    earlier source). Returns its entry."""
     import numpy as np
+    import torch
 
     from genome_downsampler_tpu_torch.ops import ssp
     from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.testing.ssp_cases import (
+        BOUNDARY_CASES,
+        boundary_case,
+        quality_cost,
+        ssp_network,
+    )
 
     def lp_case(seed):  # tests/test_device_mcmf.py::test_device_ssp_matches_lp_random
         rng = np.random.default_rng(seed)
@@ -1236,48 +1278,61 @@ def phase_ssp_kernel(dev, report):
     def reads_case(pairs, n, m):
         b = uniform_batch(pairs, n)
         return (np.asarray(b.start, np.int64), np.asarray(b.end, np.int64),
-                quality_cost(b), n, m)
+                quality_cost(b.quality), n, m)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [(f"LP seed {i}", lp_case(i)) for i in range(6)]
+    cases += [(name, boundary_case(name)) for name in BOUNDARY_CASES]
     cases.append(("3,000-base cut", reads_case(*SSP_CUT)))
     cases.append(("config-1", reads_case(*C1)))
+    cases.append(("QMCP edge", reads_case(*QMCP_EDGE)))
     errs, timed = [], {}
     for what, case in cases:
-        arrays, cap = ssp_network(*case)
+        arrays, supply = ssp_network(*case)
+        cap = supply + 16
         on_dev = [a.to(dev) for a in arrays]
         got = ssp.ssp_solve(*on_dev, cap)
-        ref, plain_ms = best_ms(lambda: ssp.ssp_solve_plain(*on_dev, cap), dev, 1,
-                                warm=False)
-        errs.append(max_abs_err([got[0]], [ref[0]]))
-        if got[1:] != ref[1:] or got[2] != ssp.OK:
-            raise AssertionError(f"SSP kernel (supply, status, phases, rounds) "
-                                 f"{got[1:]} != twin {ref[1:]} on {what}")
         B, n = arrays[0].shape[0], arrays[-1].shape[0] - 1
-        log(f"  SSP kernel == plain on {what}: B={B}, n={n}, {got[3]} phases, "
-            f"{got[4]} rounds, status OK")
-        if what in ("3,000-base cut", "config-1"):
-            ms = best_ms(lambda: ssp.ssp_solve(*on_dev, cap), dev)[1]
+        G, C = ssp.grid_shape(n, sms)
+        if got[2] != ssp.OK:
+            raise AssertionError(f"SSP kernel status {got[2]} on {what}")
+        plain_ms = None
+        if what != "QMCP edge":
+            ref, plain_ms = best_ms(lambda: ssp.ssp_solve_plain(*on_dev, cap), dev, 1,
+                                    warm=False)
+            errs.append(max_abs_err([got[0]], [ref[0]]))
+            if got[1:] != ref[1:]:
+                raise AssertionError(f"SSP kernel (supply, status, phases, rounds) "
+                                     f"{got[1:]} != twin {ref[1:]} on {what}")
+            log(f"  SSP kernel == plain on {what}: B={B}, n={n}, {G} CTAs of {C} nodes, "
+                f"{got[3]} phases, {got[4]} rounds, status OK")
+        if what in ("3,000-base cut", "config-1", "QMCP edge"):
+            reps = 3 if what == "QMCP edge" else 5
+            ms = best_ms(lambda: ssp.ssp_solve(*on_dev, cap), dev, reps)[1]
             rounds = got[4]
             bound_ms, bound_by = ssp_bound(n, B, rounds)
             timed[what] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                           "bound_by": bound_by, "n": n, "B": B, "phases": got[3],
-                           "rounds": rounds, "us_per_round": 1e3 * ms / rounds}
+                           "bound_by": bound_by, "n": n, "B": B, "ctas": G,
+                           "phases": got[3], "rounds": rounds,
+                           "us_per_round": 1e3 * ms / rounds}
             log(f"  SSP kernel on {what}: {ms:.3f} ms ({1e3 * ms / rounds:.2f} us a "
-                f"fixpoint round, {rounds} rounds), plain twin {plain_ms:.1f} ms; "
-                f"bound {bound_ms:.4f} ms ({bound_by})  [{report}]")
+                f"fixpoint round, {rounds} rounds, {G} CTAs), plain twin "
+                + (f"{plain_ms:.1f} ms" if plain_ms is not None else "not run")
+                + f"; bound {bound_ms:.4f} ms ({bound_by})  [{report}]")
         del on_dev
-    c1, cut = timed["config-1"], timed["3,000-base cut"]
+    c1 = timed["config-1"]
+    keys = ("ms", "plain_ms", "bound_ms", "n", "B", "ctas", "phases", "rounds", "us_per_round")
     return {
         "name": "ssp", "route": "cuda",
         "source": "genome_downsampler_tpu_torch/ops/csrc/ssp.cu",
         "replaces": "genome_downsampler_tpu/solvers/device_mcmf.py:198",
         "max_abs_err": max(errs), "ms": c1["ms"], "plain_ms": c1["plain_ms"],
         "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"], "library_ms": None,
-        "timed_on": f"config-1: n={c1['n']}, B={c1['B']}, {c1['phases']} phases, "
-                    f"{c1['rounds']} rounds",
-        "us_per_round": c1["us_per_round"],
-        "cut": {k: cut[k] for k in ("ms", "plain_ms", "bound_ms", "n", "B", "phases",
-                                    "rounds", "us_per_round")},
+        "timed_on": f"config-1: n={c1['n']}, B={c1['B']}, {c1['ctas']} CTAs, "
+                    f"{c1['phases']} phases, {c1['rounds']} rounds",
+        "us_per_round": c1["us_per_round"], "ctas": c1["ctas"],
+        "cut": {k: timed["3,000-base cut"][k] for k in keys},
+        "edge": {k: timed["QMCP edge"][k] for k in keys},
     }
 
 
@@ -1286,6 +1341,8 @@ def qmcp_pair(dev, reg, batch, m, label, report):
     launches counted; returns (launches, stats, cuda s, cpu s)."""
     import numpy as np
     import torch
+
+    from genome_downsampler_tpu_torch.testing.ssp_cases import quality_cost
 
     solver = reg.get("qmcp-cuda")
     pairs = batch.n_reads // 2
@@ -1300,7 +1357,7 @@ def qmcp_pair(dev, reg, batch, m, label, report):
     t0 = time.perf_counter()
     host = reg.get("qmcp-cpu").solve(m, batch)
     host_s = time.perf_counter() - t0
-    cost = quality_cost(batch)
+    cost = quality_cost(batch.quality)
     if int(cost[sel].sum()) != int(cost[host].sum()):
         raise AssertionError(f"qmcp-cuda cost {cost[sel].sum()} != qmcp-cpu "
                              f"{cost[host].sum()} at {label}")
@@ -1315,15 +1372,16 @@ def qmcp_pair(dev, reg, batch, m, label, report):
 
 
 def phase_qmcp_exact(dev, report):
-    """qmcp-cuda against qmcp-cpu at config-1 and the edge; a genome above
-    the limit goes to the host engine. Returns the SSP launches of the
-    config-1 solve and the edge solve's numbers."""
+    """qmcp-cuda against qmcp-cpu at config-1, 32,768 and 65,536 bases and
+    the edge; a genome above the limit goes to the host engine. Returns
+    each solve's SSP launches, times, phases and rounds."""
     from genome_downsampler_tpu_torch.solvers.device_mcmf import DEVICE_GENOME_LIMIT
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
     reg = default_registry()
     out = {}
-    for label, (pairs, n, m) in (("config-1", C1), ("edge", QMCP_EDGE),
+    for label, (pairs, n, m) in (("config-1", C1), ("32,768 bases", QMCP_32K),
+                                 ("65,536 bases", QMCP_64K), ("edge", QMCP_EDGE),
                                  ("above the limit", QMCP_HOST)):
         launches, stats, dt, host_s = qmcp_pair(dev, reg, uniform_batch(pairs, n), m,
                                                 label, report)
@@ -1403,7 +1461,7 @@ def phase_wide_sweep(dev, report):
     """Kernel B's wide path against its twin: long reads at L=1,024 and
     4,096 (uint16 tile) and 70,000 reads starting at one position (int32
     tile); kernel C's run-time-L instantiation at L=1,024. Returns (max
-    |err|, {what: ms}) with the L=4,096 pass timed."""
+    |err|, {what: ms}): each L's pass timed and its bound."""
     import numpy as np
     import torch
 
@@ -1434,6 +1492,7 @@ def phase_wide_sweep(dev, report):
             p, c, None, z, z, W, B, L, **kw)))
         times[f"L={L}"] = ms = best_ms(
             lambda: blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw), dev)[1]
+        times[f"L={L} bound"], by = sweep_bound(int(c.sum()), W, win, L, 4 * c.numel())
         sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
                                                 max_coverage=9)
         xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=dev)
@@ -1446,7 +1505,8 @@ def phase_wide_sweep(dev, report):
             raise AssertionError(f"kernel C disagrees with the argsort engine at L={L}")
         log(f"  kernel B wide path and kernel C == plain at L={L} (W={W}, B={B}, "
             f"{win} positions a window): kernel B {ms:.3f} ms, "
-            f"{1e6 * ms / win:.1f} ns/position  [{report}]")
+            f"{1e6 * ms / win:.1f} ns/position; bound {times[f'L={L} bound']:.4f} ms "
+            f"({by})  [{report}]")
     # 70,000 reads of one window starting at one position: the int32 tile
     W, L, n, hot = 2, 64, 256, 70_000
     start = rng.integers(0, n - L, 2 * n)
@@ -1470,7 +1530,8 @@ def phase_wide_sweep(dev, report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
-                    help="time kernel A, B or C (by the C entry OTHER.cu defines) "
+                    help="time kernel A, B, C or the SSP kernel (by the C entry "
+                         "OTHER.cu defines) "
                          "against another version of its source, in turns "
                          "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)
@@ -1555,7 +1616,7 @@ def main(argv=None) -> int:
     wide_err, wide_ms = phase_wide_sweep(dev, report)
     for ent in entries:
         ent["max_abs_err"] = max(ent["max_abs_err"], wide_err)
-    entries[0]["wide_path_ms"] = wide_ms
+    entries[0]["wide_path"] = wide_ms
     phase("[4] main path at config-4 through mcp-cuda (blocked engine)")
     launches, host4 = phase_main_path(dev, batch, report)
     for ent in entries:
@@ -1592,7 +1653,8 @@ def main(argv=None) -> int:
     phase("[13] the SSP kernel vs plain twin")
     ssp_entry = phase_ssp_kernel(dev, report)
     entries.append(ssp_entry)
-    phase("[14] qmcp-cuda vs qmcp-cpu: config-1, the edge, above the limit")
+    phase("[14] qmcp-cuda vs qmcp-cpu: config-1, 32,768 and 65,536 bases, the edge, "
+          "above the limit")
     qmcp = phase_qmcp_exact(dev, report)
     ssp_entry["launches"] = qmcp["config-1"]["launches"]
     ssp_entry["solves"] = qmcp

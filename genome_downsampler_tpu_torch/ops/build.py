@@ -49,9 +49,10 @@ _SIGNATURES = {
     "gd_sweep_variant_b": [_P] * 3 + [_I] * 2 + [_P],
     # (packed, target, out, availf, selendf, nbw, W, cap, B, L, mode, stream)
     "gd_blocked_ablate": [_P] * 5 + [_I] * 6 + [_P],
-    # (bstart, bend1, off0, cap, pool, run_lo, run_hi, excess0, flow,
-    #  scalars, ws, n, B, R, phase_cap, stream)
-    "gd_ssp_solve": [_P] * 11 + [_I] * 4 + [_P],
+    # (bstart, bend1, off0, cap, pool, run_lo, run_hi, excess0, orderF,
+    #  rangeF, orderB, rangeB, flow, scalars, ws, n, B, R, G, capF, capB,
+    #  phase_cap, stream)
+    "gd_ssp_solve": [_P] * 15 + [_I] * 7 + [_P],
 }
 
 

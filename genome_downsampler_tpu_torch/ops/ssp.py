@@ -51,8 +51,13 @@ _STATUS_MSG = {
     DEGENERATE: "degenerate zero-delta augmentation (tie cycle)",
 }
 
-# int32 arrays of n + 2 entries in the kernel's workspace (csrc/ssp.cu)
-_WS_ARRAYS = 11
+# nodes a CTA of the SSP kernel owns at least, unless the SMs run out
+# (chosen by measurement: csrc/ssp.cu's note)
+CHUNK_FLOOR = 256
+# shared memory a CTA may hold on the H100 (227 KB), against the kernel's
+# eight int32 node arrays of the chunk; the static part kept aside
+_SMEM_BUDGET = 232_448 - 1_024
+_KERNEL_NODE_ARRAYS = 8
 _KEY = 1 << 32  # (value, index) -> value * 2**32 + index, ordered as a pair
 _I32 = torch.int32
 
@@ -254,8 +259,39 @@ def ssp_solve_plain(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess,
     return flow, supply, status, phases, rounds
 
 
+def grid_shape(n: int, sms: int):
+    """``(G, C)``: the SSP kernel's CTAs for ``n + 1`` nodes on a card of
+    ``sms`` SMs, and the nodes a CTA owns (CTA c: ``[c C, c C + C)``)."""
+    g = min(sms, -(-(n + 1) // CHUNK_FLOOR))
+    return g, -(-(n + 1) // g)
+
+
+def _ws_words(n: int, B: int, G: int) -> int:
+    """int32 words of the kernel's workspace (csrc/ssp.cu: control,
+    per-CTA partials, ten node arrays, then two bucket tables of int4)."""
+    tables = (16 + 16 * G + 10 * (n + 2) + 3) // 4 * 4
+    return tables + 8 * B
+
+
+def bucket_ranges(bstart, bend1, n: int, G: int, C: int):
+    """The buckets each CTA owns: ``[order_f, range_f, sorted_f, order_b,
+    range_b, sorted_b]``. The forward side of bucket b is run by the CTA
+    that owns ``bend1[b]``, the backward side by the owner of ``bstart[b]``;
+    ``order_*`` lists the bucket ids by that node (stable), ``sorted_*`` the
+    nodes in that order, and ``range_*[c]:range_*[c + 1]`` is CTA c's share
+    of it."""
+    bounds = (torch.arange(G + 1, dtype=torch.int64, device=bstart.device) * C).clamp(
+        max=n + 1).to(_I32)
+    out = []
+    for key in (bend1, bstart):
+        srt, order = torch.sort(key, stable=True)
+        out += [order.to(_I32), torch.searchsorted(srt, bounds).to(_I32), srt]
+    return out
+
+
 def ssp_solve(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap):
-    """Run SSP phases to completion (the SSP kernel: one launch per solve).
+    """Run SSP phases to completion (the SSP kernel: one cooperative launch
+    per solve).
 
     ``bstart``, ``bend1`` (= bucket end + 1), ``off0`` and ``cap`` int32
     ``[B]``; ``pool`` (unit costs, ascending within each bucket),
@@ -263,30 +299,50 @@ def ssp_solve(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap)
     ``[R]``; ``excess`` int32 ``[n + 1]`` the node supplies. Returns
     ``(flow[B] int32 tensor, supply, status, phases, rounds)``, the last four
     Python ints: the supply left, the status code, the phases run and the
-    fixpoint rounds over all phases."""
+    fixpoint rounds over all phases. On the card it raises where the card
+    lacks cooperative launch or the grid's CTAs cannot all be resident."""
     if excess.device.type == "cpu":
         return ssp_solve_plain(bstart, bend1, off0, cap, pool, run_lo, run_hi,
                                excess, phase_cap)
     if excess.device.type != "cuda":
         raise ValueError(f"no SSP solve for device {excess.device}")
+    out = launch(build.load_kernels(), bstart, bend1, off0, cap, pool, run_lo, run_hi,
+                 excess, phase_cap)
+    ssp_solve.launches += 1
+    return out
+
+
+def launch(lib, bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap):
+    """One launch of ``lib``'s ``gd_ssp_solve`` (the kernel library, or
+    another build of the same source) on CUDA tensors, uncounted; returns
+    what ``ssp_solve`` returns."""
     B, n = _solve_args(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess)
-    if not 0 <= phase_cap < 2**31:
+    if not 0 <= phase_cap <= IMAX:
         raise ValueError(f"phase_cap {phase_cap} outside int32")
     dev = excess.device
+    G, C = grid_shape(n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if _KERNEL_NODE_ARRAYS * 4 * (-(-C // 4) * 4) > _SMEM_BUDGET:
+        raise ValueError(f"n={n}: {C} nodes a CTA exceed the SSP kernel's shared memory")
+    order_f, range_f, srt_f, order_b, range_b, srt_b = bucket_ranges(bstart, bend1, n, G, C)
+    cap_f, cap_b, lo_f, hi_f, lo_b, hi_b = torch.stack([
+        (range_f[1:] - range_f[:-1]).max(), (range_b[1:] - range_b[:-1]).max(),
+        srt_f[0], srt_f[-1], srt_b[0], srt_b[-1]]).tolist()
+    if not (0 <= lo_f and hi_f <= n and 0 <= lo_b and hi_b <= n):
+        raise ValueError(f"bucket nodes outside 0..{n}")
     flow = torch.empty(B, dtype=_I32, device=dev)
     scalars = torch.empty(4, dtype=_I32, device=dev)
-    ws = torch.empty(_WS_ARRAYS * (n + 2), dtype=_I32, device=dev)
-    lib = build.load_kernels()
+    ws = torch.empty(_ws_words(n, B, G), dtype=_I32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.gd_ssp_solve(
             bstart.data_ptr(), bend1.data_ptr(), off0.data_ptr(), cap.data_ptr(),
             pool.data_ptr(), run_lo.data_ptr(), run_hi.data_ptr(),
-            excess.data_ptr(), flow.data_ptr(), scalars.data_ptr(), ws.data_ptr(),
-            n, B, pool.shape[0], int(phase_cap),
+            excess.data_ptr(), order_f.data_ptr(), range_f.data_ptr(),
+            order_b.data_ptr(), range_b.data_ptr(), flow.data_ptr(),
+            scalars.data_ptr(), ws.data_ptr(),
+            n, B, pool.shape[0], G, cap_f, cap_b, int(phase_cap),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check("gd_ssp_solve", rc)
-    ssp_solve.launches += 1
     supply, status, phases, rounds = scalars.tolist()
     return flow, supply, status, phases, rounds
 

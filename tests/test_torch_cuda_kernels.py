@@ -25,6 +25,11 @@ from genome_downsampler_tpu_torch.solvers.native_greedy import (
     native_greedy_select,
 )
 from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
+from genome_downsampler_tpu_torch.testing.ssp_cases import (
+    BOUNDARY_CASES,
+    boundary_case,
+    ssp_network,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -302,14 +307,8 @@ def test_blocked_solver_cuda_long_reads_match_host_greedy(cuda, span):
 def _ssp_inputs(seed):
     """The SSP network of seeded reads: seeds 0-5 are the inputs of the JAX
     suite's random LP cases (N = 600), 6 and 7 cuts of config-1 at its depth
-    to 1,500 and 10,000 bases (7 spans three of the kernel's 4,096-node scan
-    tiles, so the carries between tiles are held to the twin)."""
-    from genome_downsampler_tpu_torch.solvers.device_mcmf import (
-        _node_excess,
-        _run_tables,
-        build_convex_buckets,
-    )
-
+    to 1,500 and 10,000 bases (on 132 SMs: 6 CTAs of 251 nodes and 40 CTAs
+    of 251, so the carries between CTAs are held to the twin)."""
     rng = np.random.default_rng(seed)
     if seed < 6:
         r = int(rng.integers(8, 300))
@@ -322,13 +321,7 @@ def _ssp_inputs(seed):
         start, end = np.asarray(b.start, np.int64), np.asarray(b.end, np.int64)
         q = np.asarray(b.quality, np.int64)
         cost, m = q.max() - q + 1, 100
-    bs, be, off, pool, _, first = build_convex_buckets(start, end, cost)
-    B = bs.shape[0]
-    excess = _node_excess(bs, be, np.diff(off), n, m)
-    lo, hi = _run_tables(pool, first)
-    arrays = [bs, be + 1, off[:B], np.diff(off), pool, lo, hi, excess]
-    return ([torch.tensor(np.ascontiguousarray(a, np.int32)) for a in arrays],
-            int(excess[excess > 0].sum()))
+    return ssp_network(start, end, cost, n, m)
 
 
 def _ssp_equal(cuda, arrays, phase_cap):
@@ -353,6 +346,46 @@ def test_ssp_kernel_matches_plain(cuda, seed):
     # cut short: the same status, DEGENERATE with supply left, from both
     if supply0 > 1:
         assert _ssp_equal(cuda, arrays, 1)[2] == ssp.DEGENERATE
+
+
+@pytest.mark.parametrize("name", BOUNDARY_CASES)
+def test_ssp_kernel_cta_boundaries_match_plain(cuda, name):
+    from genome_downsampler_tpu_torch.ops import ssp
+
+    arrays, supply0 = ssp_network(*boundary_case(name))
+    n = arrays[7].shape[0] - 1
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    G, C = ssp.grid_shape(n, sms)
+    assert G > 1 and (name != "ragged chunks" or (n + 1) % C != 0)
+    if name == "stacked amplicons":
+        _, range_f, _, _, _, _ = ssp.bucket_ranges(arrays[0], arrays[1], n, G, C)
+        per_cta = (range_f[1:] - range_f[:-1]).tolist()
+        assert max(per_cta) > sum(per_cta) // 2
+    _, supply, status, phases, rounds = _ssp_equal(cuda, arrays, supply0 + 16)
+    assert (supply, status) == (0, ssp.OK) and rounds >= phases >= 1
+    assert _ssp_equal(cuda, arrays, 1)[2] == ssp.DEGENERATE
+
+
+def test_ssp_kernel_raises_where_its_ctas_cannot_be_resident(cuda):
+    """5,000 CTAs of 256 threads exceed what 132 SMs hold at once: the
+    C entry refuses the cooperative launch and the check raises."""
+    from genome_downsampler_tpu_torch.ops import build, ssp
+
+    arrays, supply0 = _ssp_inputs(7)
+    a = [x.to(cuda) for x in arrays]
+    n, B, G = a[7].shape[0] - 1, a[0].shape[0], 5_000
+    C = -(-(n + 1) // G)
+    order_f, range_f, _, order_b, range_b, _ = ssp.bucket_ranges(a[0], a[1], n, G, C)
+    flow = torch.empty(B, dtype=torch.int32, device=cuda)
+    scalars = torch.empty(4, dtype=torch.int32, device=cuda)
+    ws = torch.empty(ssp._ws_words(n, B, G), dtype=torch.int32, device=cuda)
+    lib = build.load_kernels()
+    rc = lib.gd_ssp_solve(*(x.data_ptr() for x in a), order_f.data_ptr(), range_f.data_ptr(),
+                          order_b.data_ptr(), range_b.data_ptr(), flow.data_ptr(),
+                          scalars.data_ptr(), ws.data_ptr(), n, B, a[4].shape[0], G, B, B,
+                          supply0 + 16, torch.cuda.current_stream(cuda).cuda_stream)
+    with pytest.raises(RuntimeError, match="gd_ssp_solve"):
+        build.check("gd_ssp_solve", rc)
 
 
 def test_ssp_kernel_reports_an_infeasible_network(cuda):
