@@ -74,9 +74,21 @@ package. Phases, each of which raises on failure:
     the traces under ``build/profile/``.
 
 Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
-reads at L=1,024 and 4,096, timed; an int32 arrival tile under 70,000
-reads starting at one position) and kernel C's run-time-L instantiation
-(L=1,024 and 4,096) to their twins.
+reads at L=1,024 and 4,096, from zero and seeded carries, timed; 70,000
+reads starting at one position; the config-4 full pass at L=256 called
+through the wide path, equal to the register path and timed beside it) and
+kernel C's run-time-L instantiation (L=1,024 and 4,096) to their twins.
+Phase 3c is the wide path's main path: ``mcp-cuda-blocked`` warm against
+``mcp-cpu`` on the three read sets of ``testing/long_reads.py`` from seed
+12345, ``midnight-30kb`` (200,000 tiled 1,200-bp amplicon reads over 29,903
+bases, M=100: W=8, B=256, L=1,280), ``long-5mb`` (250,000 reads of
+1,000-3,000 bases over 5 Mb, M=50: W=64, B=128, L=3,072) and
+``artic-deep-30kb`` (7M pairs of 100-150 bp on 98 ARTIC amplicons, 71,428
+first mates starting at each primer site, M=1000: W=8, B=256, L=256, every
+pass on the wide path for its depth): read set equal, coverage valid, the
+wide path and kernel C launched and the register path not; the laps and
+rounds; on the solve's own last kernel C arguments, one full pass of the
+wide path and kernel C each held to its twin and timed (ns per position).
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; each phase prints its wall time. Phases 7-9 also record
@@ -101,16 +113,20 @@ holds a main-path kernel against another version of its source (an earlier
 commit's, written out with ``git show <commit>:genome_downsampler_tpu_torch/
 ops/csrc/dense_sweep.cu``): the kernel is the one whose C entry the other
 source defines (``gd_dense_sweep``: kernel A, ``gd_blocked_sweep``: kernel
-B, ``gd_blocked_select``: kernel C, ``gd_ssp_solve``: the SSP kernel, whose
-one-CTA version's entry is also taken). Each other source is built into its
+B, ``gd_blocked_sweep_wide``: kernel B's wide path, ``gd_blocked_select``:
+kernel C, ``gd_ssp_solve``: the SSP kernel, whose one-CTA version's entry
+is also taken). Each other source is built into its
 own library under ``build/against/``, and the port's source of the same
 kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
 per instantiation are printed). Phases 1 and 2 run, then each version is
 held bit-equal to the port's and the two are timed in turns (other, port,
 port, other) at its kernel's cells: kernel A at config-1 (counts and takes
 mode), the edge and 32 rows of 32,768 positions at config-4's depth;
-kernel B on the config-4 full pass and tail slice; kernel C on the config-4
-full pass; the SSP kernel on the 3,000-base cut, config-1 and the QMCP edge
+kernel B on the config-4 full pass and tail slice; the wide path on phase
+3b's passes at L=1,024 and 4,096 and its deep stack (also from seeded
+carries at grid offset 1), one full pass of each read set of phase 3c and
+the config-4 full pass; kernel C on the config-4 full pass; the SSP kernel on
+the 3,000-base cut, config-1 and the QMCP edge
 (once a turn there). It ends with the turns' JSON object instead of the
 three lines.
 """
@@ -155,6 +171,16 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # and min, F - G, the selend add, min(taken, F) and F -= (G, the next slot's
 # F, is a register read or a shuffle, not arithmetic)
 SWEEP_OPS = 8
+# int32 ops of the wide path's per-end step (blocked_sweep_wide.cu): per
+# position and window the deficit, its clamp, the take's min, the emit, cur,
+# A, the slot's clear and h; per read its end slot, the wrap, its count and
+# live bit at arrival, and its count's one take or expiry (a walk step that
+# empties a slot, or the slot's clear, is paid once per read that filled it)
+WIDE_POSITION_OPS, WIDE_READ_OPS = 8, 6
+# the read sets of phase 3c, the wide path's main path (testing/long_reads.py),
+# and their M
+WIDE_READ_SETS = {"midnight-30kb": ("midnight_30kb", 100), "long-5mb": ("long_5mb", 50),
+                  "artic-deep-30kb": ("artic_deep_30kb", 1000)}
 # per selected-or-not read of kernel C: its start and end from the code,
 # the bucket's rank offset, the quota gather, the compare, the store
 SELECT_OPS = 8
@@ -199,6 +225,7 @@ def launch_counts():
     return {
         "dense_sweep": sweep.dense_sweep_counts,
         "blocked_sweep": blocked.blocked_sweep_pass,
+        "blocked_sweep_wide": blocked.blocked_sweep_wide,
         "blocked_select": blocked.blocked_selection_pass,
         "variant_c": variants.sweep_variant_c,
         "variant_b": variants.sweep_variant_b,
@@ -252,6 +279,42 @@ def config4_batch():
         is_first=np.tile([True, False], C4_READS // 2),
         ref_genome_length=C4_GENOME,
     )
+
+
+def config4_inputs(dev, batch):
+    """The config-4 solve's packed codes, counts, target and cross-window
+    offsets on the card, at the blocked solver's geometry."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch import _native
+    from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
+        BlockedWindowedMcpSolver,
+        _cross_window_offsets,
+    )
+
+    W, B, L, chunk = BlockedWindowedMcpSolver("cuda")._geometry(
+        C4_GENOME, READ_LEN, C4_READS * READ_LEN / C4_GENOME
+    )
+    flat, counts, win, n_pad, cap, _ = _native.pack_flat_direct(
+        batch.start, batch.end, C4_GENOME, W, B, L, cap_multiple=chunk,
+        cap_floor=2 * chunk,
+    )
+    counts_d = torch.tensor(counts, device=dev)
+    return {
+        "W": W, "B": B, "L": L, "win": win, "counts": counts_d,
+        "p32": blocked.expand_flat_codes(
+            torch.tensor(flat.view(np.int16), device=dev), counts_d, win // B, W, cap
+        ),
+        "target": torch.tensor(
+            _native.capped_target(batch.start, batch.end, n_pad, C4_M).reshape(W, win),
+            device=dev,
+        ),
+        "xwin": torch.tensor(
+            _cross_window_offsets(batch.start, batch.end, win, W, B, L), device=dev
+        ),
+    }
 
 
 def phase_sweep(dev, c4, report):
@@ -384,7 +447,8 @@ def start_against_builds(paths):
 # (slots per lane and the target or takes mode; L for kernel C), spills and
 # registers
 PTXAS_ENTRY = re.compile(
-    r"Compiling entry function '[^']*?(blocked_sweep|dense_sweep|blocked_select|ssp)_kernel"
+    r"Compiling entry function '[^']*?(blocked_sweep_wide|blocked_sweep|dense_sweep|blocked_select"
+    r"|ssp)_kernel"
     r"(?:ILi(\d+)E(?:Lb(\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
     r"loads.*?Used (\d+) registers", re.S)
 
@@ -576,12 +640,70 @@ def turns_ssp(dev, c4):
     return checks, timed
 
 
+def turns_blocked_sweep_wide(dev, c4):
+    """The wide path's cells: phase 3b's passes at L=1,024 and 4,096 and its
+    deep stack, one full pass of each read set of phase 3c on its solve's
+    codes (midnight-30kb: W=8, B=256, L=1,280; long-5mb: W=64, B=128,
+    L=3,072; artic-deep-30kb: W=8, B=256, L=256) and the config-4 full pass
+    (L=256), auto targets from zero carries; phase 3b's and artic-deep-30kb
+    also checked from seeded carries at grid offset 1. ``wide_tile`` is 1
+    only where more than 65,535 reads of a group start at one position: the
+    int32 tile an earlier source needs there (the port's ignores it)."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import blocked, build
+    from genome_downsampler_tpu_torch.solvers.blocked_sweep import BlockedWindowedMcpSolver
+
+    cells = {k: v[:7] for k, v in wide_cases(dev).items()}
+    for label in WIDE_READ_SETS:
+        batch, m = wide_read_batch(label)
+        with selection_calls() as calls:
+            BlockedWindowedMcpSolver("cuda").solve(m, batch)
+        del batch
+        p32, cnt, _, _, W, B, L = calls[-1][0]
+        cells[label] = (p32, cnt, W, B, L, p32.shape[0] * B, m)
+    cells["config-4 L=256"] = (c4["p32"], c4["counts"], c4["W"], c4["B"], c4["L"],
+                               c4["win"], C4_M)
+    deep = {cell: int(v[0].shape[2] > blocked._CUDA_MAX_STARTS and blocked._max_starts(
+        v[0], v[3], v[4]) > blocked._CUDA_MAX_STARTS) for cell, v in cells.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    g = torch.Generator().manual_seed(SEED)
+    # the carries, on the card before any timing: (cell, seeded) -> 3 rings
+    carry = {(cell, seeded): [
+        (torch.randint(0, 4, v[2:5:2], generator=g, dtype=torch.int32) if seeded
+         else torch.zeros(v[2:5:2], dtype=torch.int32)).to(dev) for _ in range(3)]
+        for cell, v in cells.items() for seeded in (False, True)}
+
+    def run(lib, cell, off, seeded):
+        p, c, W, B, L, _, m = cells[cell]
+        nbw, _, cap = p.shape
+        carries = carry[cell, seeded]
+        out = [torch.empty((W, (nbw - off) * B), dtype=torch.int32, device=dev)]
+        out += [torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)]
+        build.check("gd_blocked_sweep_wide", lib.gd_blocked_sweep_wide(
+            c.data_ptr(), p.data_ptr(), None, *(x.data_ptr() for x in carries),
+            *(o.data_ptr() for o in out), nbw, W, cap, B, L, off, 1, m, deep[cell],
+            stream))
+        return out
+
+    checks = [lambda lib, k=cell: run(lib, k, 0, False) for cell in cells]
+    checks += [lambda lib, k=cell: run(lib, k, 1, True)
+               for cell in ("L=1024", "L=4096", "deep stack", "artic-deep-30kb")]
+    timed = {cell: (lambda lib, k=cell: run(lib, k, 0, False), v[5])
+             for cell, v in cells.items()}
+    return checks, timed
+
+
 # the kernels --against takes, by the C entry the other source defines: the
 # port's source of the kernel and the function that makes its cells
 AGAINST_KERNELS = {"gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
                    "gd_blocked_sweep": ("blocked_sweep.cu", turns_blocked_sweep),
+                   "gd_blocked_sweep_wide": ("blocked_sweep_wide.cu",
+                                             turns_blocked_sweep_wide),
                    "gd_blocked_select": ("blocked_select.cu", turns_blocked_select),
                    "gd_ssp_solve": ("ssp.cu", turns_ssp)}
+
+
 def against_signature(path, entry):
     """The ctypes argument types of ``entry`` as the source at ``path``
     declares it: the port's, or an earlier version's of the same count
@@ -801,23 +923,28 @@ def row_head(x, n):
 
 
 @contextlib.contextmanager
-def kernel_a_calls(module):
-    """Record the arguments of every kernel A launch a path makes through
-    ``module.dense_sweep_counts``: the shapes and carries it gives the
+def recorded_calls(module, name, fn):
+    """Record the arguments of every call a path makes through
+    ``module.<name>`` (which is ``fn``): the shapes and carries it gives the
     kernel. The launches run, and count, as they would without it."""
-    from genome_downsampler_tpu_torch.ops import sweep
-
     calls = []
 
     def recorded(*args, **kw):
         calls.append((args, kw))
-        return sweep.dense_sweep_counts(*args, **kw)
+        return fn(*args, **kw)
 
-    module.dense_sweep_counts = recorded
+    setattr(module, name, recorded)
     try:
         yield calls
     finally:
-        module.dense_sweep_counts = sweep.dense_sweep_counts
+        setattr(module, name, fn)
+
+
+def kernel_a_calls(module):
+    """``recorded_calls`` of kernel A's wrapper as ``module`` calls it."""
+    from genome_downsampler_tpu_torch.ops import sweep
+
+    return recorded_calls(module, "dense_sweep_counts", sweep.dense_sweep_counts)
 
 
 def dense_bound(S, n, L):
@@ -903,7 +1030,8 @@ def phase_dense_kernel(dev, report):
 
 def solve_pair(dev, reg, name, batch, m, report, label):
     """Warm solve of ``name`` with the counts reset just before and read
-    just after, against mcp-cpu; returns (selection, launches, stats)."""
+    just after, against mcp-cpu; returns (selection, mcp-cpu's selection,
+    launches, {"solve_s", "host_s", "stats"})."""
     import numpy as np
     import torch
 
@@ -929,7 +1057,7 @@ def solve_pair(dev, reg, name, batch, m, report, label):
         f"{dt:.4f} s vs mcp-cpu {host_s:.4f} s  [{report}]")
     if stats:
         log(f"    last_stats: {json.dumps(stats)}")
-    return sel, host, launches
+    return sel, host, launches, {"solve_s": dt, "host_s": host_s, "stats": stats}
 
 
 def phase_dense_path(dev, report):
@@ -950,8 +1078,8 @@ def phase_dense_path(dev, report):
         if reg.get("mcp-cuda").inner._pick_engine(n) != "dense":
             raise AssertionError(f"{label}: {n} bases do not pick the dense engine")
         with kernel_a_calls(device_sweep) as calls:
-            _, _, launches[label] = solve_pair(dev, reg, "mcp-cuda", batch, m,
-                                               report, label)
+            _, _, launches[label], _ = solve_pair(dev, reg, "mcp-cuda", batch, m,
+                                                  report, label)
         expect_launches(launches[label], "dense_sweep")
         args, kw = calls[-1]
         rows, target, a0, s0, L = args
@@ -1070,7 +1198,7 @@ def phase_qmcp(dev, report):
     pairs, n, m = C1
     batch = uniform_batch(pairs, n)
     reg = default_registry()
-    sel, host, launches = solve_pair(dev, reg, "qmcp-sweep-cuda", batch, m, report,
+    sel, host, launches, _ = solve_pair(dev, reg, "qmcp-sweep-cuda", batch, m, report,
                                      "config-1")
     expect_launches(launches, "dense_sweep")
     cpu = QmcpDeviceSweepSolver("cpu").solve(m, batch)
@@ -1457,12 +1585,55 @@ def phase_profile(dev, report):
     return shares
 
 
-def phase_wide_sweep(dev, report):
-    """Kernel B's wide path against its twin: long reads at L=1,024 and
-    4,096 (uint16 tile) and 70,000 reads starting at one position (int32
-    tile); kernel C's run-time-L instantiation at L=1,024. Returns (max
-    |err|, {what: ms}): each L's pass timed and its bound."""
+def wide_cases(dev):
+    """Phase 3b's inputs of kernel B's wide path, ``{cell: (packed, counts,
+    W, B, L, positions a window, M, start, end)}``: long reads at L=1,024
+    and 4,096 (W=4, B=128, about 2 reads starting a position, spans
+    1..L-1) and the deep stack (W=2, B=64, L=64: 70,000 reads of one window
+    starting at one position, more than uint16 counts)."""
     import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch import _native
+
+    rng = np.random.default_rng(SEED)
+    cases = {}
+    W, B = 4, 128
+    for L in (1024, 4096):
+        n = W * max(4 * B, L)
+        start = rng.integers(0, n - L, 2 * n)
+        end = start + rng.integers(0, L - 1, 2 * n)
+        packed, counts, win, _, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                         cap_multiple=64)
+        cases[f"L={L}"] = (torch.tensor(packed, device=dev), torch.tensor(counts, device=dev),
+                           W, B, L, win, 9, start, end)
+    W, L, n, hot = 2, 64, 256, 70_000
+    start = rng.integers(0, n - L, 2 * n)
+    end = np.concatenate([start + rng.integers(0, L - 1, 2 * n), np.full(hot, 64 + 35)])
+    start = np.concatenate([start, np.full(hot, 64 + 5)])
+    packed, counts, win, _, _ = _native.pack_blocked(start, end, n, W, 64, L, cap_multiple=64)
+    cases["deep stack"] = (torch.tensor(packed, device=dev), torch.tensor(counts, device=dev),
+                           W, 64, L, win, 80_000, start, end)
+    return cases
+
+
+def wide_bound(codes, W, positions, L, extra_bytes):
+    """The wide path's bound: the bytes of ``sweep_bound`` and the per-end
+    step's operations (WIDE_POSITION_OPS a position and window, WIDE_READ_OPS
+    a read); returns ``(bound_ms, bound_by, bytes-only ms)``."""
+    nbytes = 4 * (codes + W * positions + 6 * W * L) + extra_bytes
+    ms, by = bound(WIDE_POSITION_OPS * W * positions + WIDE_READ_OPS * codes, nbytes)
+    return ms, by, 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def phase_wide_sweep(dev, c4, report):
+    """Kernel B's wide path against its twin: long reads at L=1,024 and
+    4,096 from zero carries with auto targets and from seeded carries at
+    grid offset 1 with given targets, the deep stack; kernel C's
+    run-time-L instantiation at both L; the wide path called directly on
+    the config-4 full pass (L=256), equal to the register path there and to
+    the twin on its tail slice. Returns (the wide path's entry, kernel C's
+    max |err|)."""
     import torch
 
     from genome_downsampler_tpu_torch import _native
@@ -1474,78 +1645,197 @@ def phase_wide_sweep(dev, report):
         pack_bits,
     )
 
-    rng = np.random.default_rng(SEED)
-    errs, times = [], {}
-    W, B = 4, 128
-    for L in (1024, 4096):
-        n = W * max(4 * B, L)
-        start = rng.integers(0, n - L, 2 * n)
-        end = start + rng.integers(0, L - 1, 2 * n)
-        packed, counts, win, _, _ = _native.pack_blocked(start, end, n, W, B, L,
-                                                         cap_multiple=64)
-        p, c = torch.tensor(packed, device=dev), torch.tensor(counts, device=dev)
+    errs, sel_errs, ent = [], [], {}
+    for cell, (p, c, W, B, L, win, m, start, end) in wide_cases(dev).items():
         z = torch.zeros((W, L), dtype=torch.int32, device=dev)
-        kw = dict(avail0i=z, auto_target=True, max_coverage=9)
+        kw = dict(avail0i=z, auto_target=True, max_coverage=m)
         got = blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw)
         torch.cuda.synchronize()
+        ref, plain_ms = best_ms(lambda: blocked.blocked_sweep_pass_plain(
+            p, c, None, z, z, W, B, L, **kw), dev, 1, warm=False)
+        errs.append(max_abs_err(got, ref))
+        g = torch.Generator().manual_seed(SEED)
+        seeded = [torch.randint(0, 4, (W, L), generator=g, dtype=torch.int32).to(dev)
+                  for _ in range(3)]
+        n_pad = W * win
+        tgt = torch.tensor(_native.capped_target(start, end, n_pad, m).reshape(W, win),
+                           device=dev)
+        kw1 = dict(grid_offset=1, avail0i=seeded[2])
+        got = blocked.blocked_sweep_pass(p, c, tgt, *seeded[:2], W, B, L, **kw1)
+        torch.cuda.synchronize()
         errs.append(max_abs_err(got, blocked.blocked_sweep_pass_plain(
-            p, c, None, z, z, W, B, L, **kw)))
-        times[f"L={L}"] = ms = best_ms(
-            lambda: blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw), dev)[1]
-        times[f"L={L} bound"], by = sweep_bound(int(c.sum()), W, win, L, 4 * c.numel())
+            p, c, tgt, *seeded[:2], W, B, L, **kw1)))
+        if cell == "deep stack":
+            if int(ref[0].max()) <= 65535:
+                raise AssertionError("the deep stack case does not exceed uint16")
+            log(f"  kernel B wide path == plain: 70,000 reads starting at one position, "
+                f"{int(ref[0].max())} selected ending at one position; seeded, grid "
+                f"offset 1")
+            continue
+        ms = best_ms(lambda: blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw),
+                     dev)[1]
+        codes, extra = int(c.sum()), 4 * c.numel()
+        b_ms, b_by, bytes_ms = wide_bound(codes, W, win, L, extra)
+        ent[cell] = {"ms": ms, "ns_per_position": 1e6 * ms / win, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bytes_ms,
+                     "slot_bound_ms": sweep_bound(codes, W, win, L, extra)[0]}
         sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
-                                                max_coverage=9)
+                                                max_coverage=m)
         xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=dev)
         got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
         torch.cuda.synchronize()
-        errs.append(max_abs_err([got], [blocked.blocked_selection_pass_plain(
+        sel_errs.append(max_abs_err([got], [blocked.blocked_selection_pass_plain(
             p, c, sel, xwin, W, B, L)]))
         bits, n_sel = _selection_mask(p, sel, W, B, L, win)
         if not torch.equal(pack_bits(got), bits) or int(got.sum()) != n_sel:
-            raise AssertionError(f"kernel C disagrees with the argsort engine at L={L}")
-        log(f"  kernel B wide path and kernel C == plain at L={L} (W={W}, B={B}, "
-            f"{win} positions a window): kernel B {ms:.3f} ms, "
-            f"{1e6 * ms / win:.1f} ns/position; bound {times[f'L={L} bound']:.4f} ms "
-            f"({by})  [{report}]")
-    # 70,000 reads of one window starting at one position: the int32 tile
-    W, L, n, hot = 2, 64, 256, 70_000
-    start = rng.integers(0, n - L, 2 * n)
-    end = np.concatenate([start + rng.integers(0, L - 1, 2 * n), np.full(hot, 64 + 35)])
-    start = np.concatenate([start, np.full(hot, 64 + 5)])
-    packed, counts, _, _, _ = _native.pack_blocked(start, end, n, W, 64, L, cap_multiple=64)
-    p, c = torch.tensor(packed, device=dev), torch.tensor(counts, device=dev)
+            raise AssertionError(f"kernel C disagrees with the argsort engine at {cell}")
+        log(f"  kernel B wide path and kernel C == plain at {cell} (W={W}, B={B}, "
+            f"{win} positions a window; zero and seeded carries): wide path {ms:.4f} ms, "
+            f"{1e6 * ms / win:.1f} ns/position; plain twin {plain_ms:.1f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}; bytes alone {bytes_ms:.5f} ms, the slot-wise step's "
+            f"operations {ent[cell]['slot_bound_ms']:.4f} ms)  [{report}]")
+
+    # the config-4 full pass through the wide path (L=256), against the
+    # register path on the whole pass and the twin on the tail slice
+    p32, cnt, W, B, L = c4["p32"], c4["counts"], c4["W"], c4["B"], c4["L"]
+    nbw = p32.shape[0]
     z = torch.zeros((W, L), dtype=torch.int32, device=dev)
-    kw = dict(avail0i=z, auto_target=True, max_coverage=80_000)
-    got = blocked.blocked_sweep_pass(p, c, None, z, z, W, 64, L, **kw)
+    kw = dict(avail0i=z, auto_target=True, max_coverage=C4_M)
+    got = blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L, **kw)
+    errs.append(max_abs_err(got, blocked.blocked_sweep_pass(p32, cnt, None, z, z, W, B, L,
+                                                            **kw)))
+    tail = nbw - TAIL_BLOCKS
+    got = blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw)
     torch.cuda.synchronize()
-    ref = blocked.blocked_sweep_pass_plain(p, c, None, z, z, W, 64, L, **kw)
-    errs.append(max_abs_err(got, ref))
-    if int(ref[0].max()) <= 65535:
-        raise AssertionError("the deep stack case does not exceed uint16")
-    log(f"  kernel B wide path (int32 tile) == plain: {hot} reads starting at one "
-        f"position, {int(ref[0].max())} selected ending at one position")
-    return max(errs), times
+    errs.append(max_abs_err(got, blocked.blocked_sweep_pass_plain(
+        p32, cnt, None, z, z, W, B, L, grid_offset=tail, **kw)))
+    c4_ms = best_ms(lambda: blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L, **kw),
+                    dev)[1]
+    reg_ms = best_ms(lambda: blocked.blocked_sweep_pass(p32, cnt, None, z, z, W, B, L, **kw),
+                     dev)[1]
+    pos = nbw * B
+    log(f"  config-4 full pass (W={W}, B={B}, L={L}, {pos} positions) through the wide "
+        f"path == the register path, tail slice == plain: wide path {c4_ms:.3f} ms "
+        f"({1e6 * c4_ms / pos:.1f} ns/position), register path {reg_ms:.3f} ms "
+        f"({1e6 * reg_ms / pos:.1f} ns/position)  [{report}]")
+    a, b4 = ent["L=1024"], ent["L=4096"]
+    return {
+        "name": "blocked_sweep_wide", "route": "cuda",
+        "source": "genome_downsampler_tpu_torch/ops/csrc/blocked_sweep_wide.cu",
+        "replaces": "genome_downsampler_tpu/ops/pallas_blocked.py:383",
+        "max_abs_err": max(errs), "ms": a["ms"], "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"], "bound_by": a["bound_by"], "library_ms": None,
+        "timed_on": "L=1,024: W=4, B=128, 1,024 positions a window, auto_target",
+        "ns_per_position": a["ns_per_position"], "bytes_bound_ms": a["bytes_bound_ms"],
+        "slot_bound_ms": a["slot_bound_ms"], "L4096": b4,
+        "config4_L256_ms": c4_ms, "config4_L256_ns_per_position": 1e6 * c4_ms / pos,
+        "config4_register_path_ms": reg_ms,
+    }, max(sel_errs)
+
+
+def wide_read_batch(label):
+    """``(ReadBatch, M)`` of a read set of ``WIDE_READ_SETS``, from SEED."""
+    import numpy as np
+
+    from genome_downsampler_tpu_torch.testing import long_reads
+
+    make, m = WIDE_READ_SETS[label]
+    return getattr(long_reads, make)(np.random.default_rng(SEED)), m
+
+
+def selection_calls():
+    """``recorded_calls`` of kernel C's wrapper as the blocked solver calls
+    it: the solve's packed codes, counts, selection and cross-window
+    offsets, and its geometry."""
+    from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.solvers import blocked_sweep
+
+    return recorded_calls(blocked_sweep, "blocked_selection_pass",
+                          blocked.blocked_selection_pass)
+
+
+def phase_long_reads(dev, report):
+    """``mcp-cuda-blocked`` on the read sets of ``WIDE_READ_SETS`` against
+    ``mcp-cpu``: read set equal, coverage valid, the wide path and kernel C
+    launched and the register path not; the laps and rounds. On the solve's
+    own last kernel C arguments (packed codes, counts, selection,
+    cross-window offsets): one full pass of the wide path from zero
+    carries and kernel C, each held to its twin and timed (ns per
+    position). Returns ``{cell: {...}}``."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    reg = default_registry()
+    out = {}
+    for label in WIDE_READ_SETS:
+        batch, m = wide_read_batch(label)
+        with selection_calls() as calls:
+            _, _, launches, info = solve_pair(dev, reg, "mcp-cuda-blocked", batch, m,
+                                              report, label)
+        expect_launches(launches, "blocked_sweep_wide", "blocked_select")
+        reads, genome = batch.n_reads, batch.ref_genome_length
+        del batch
+        p32, cnt, sel, xwin, W, B, L = calls[-1][0]
+        stats = info["stats"]
+        nbw = p32.shape[0]
+        win = nbw * B
+        z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+        kw = dict(avail0i=z, auto_target=True, max_coverage=m)
+        got = blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L, **kw)
+        torch.cuda.synchronize()
+        ref, plain_ms = best_ms(lambda: blocked.blocked_sweep_pass_plain(
+            p32, cnt, None, z, z, W, B, L, **kw), dev, 1, warm=False)
+        err = max_abs_err(got, ref)
+        del got, ref
+        got = blocked.blocked_selection_pass(p32, cnt, sel, xwin, W, B, L)
+        torch.cuda.synchronize()
+        sel_ref, sel_plain_ms = best_ms(lambda: blocked.blocked_selection_pass_plain(
+            p32, cnt, sel, xwin, W, B, L), dev, 1, warm=False)
+        sel_err = max_abs_err([got], [sel_ref])
+        del got, sel_ref
+        pass_ms = best_ms(lambda: blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L,
+                                                             **kw), dev, 3)[1]
+        sel_ms = best_ms(lambda: blocked.blocked_selection_pass(p32, cnt, sel, xwin, W, B, L),
+                         dev)[1]
+        codes = int(cnt.sum())
+        b_ms, b_by, bytes_ms = wide_bound(codes, W, win, L, 4 * cnt.numel())
+        out[label] = {
+            "reads": reads, "genome": genome, "M": m,
+            "W": W, "B": B, "L": L, "positions_per_pass": win,
+            "launches": launches, "rounds": stats["rounds"], "laps_s": stats["phases_s"],
+            "solve_s": info["solve_s"], "mcp_cpu_s": info["host_s"],
+            "pass_ms": pass_ms, "ns_per_position": 1e6 * pass_ms / win,
+            "pass_bound_ms": b_ms, "pass_bound_by": b_by, "pass_bytes_bound_ms": bytes_ms,
+            "pass_slot_bound_ms": sweep_bound(codes, W, win, L, 4 * cnt.numel())[0],
+            "pass_plain_ms": plain_ms, "max_abs_err": err, "select_ms": sel_ms,
+            "select_plain_ms": sel_plain_ms, "select_max_abs_err": sel_err,
+        }
+        log(f"  {label} (W={W}, B={B}, L={L}, {win} positions a window, {codes} codes): "
+            f"{stats['rounds']} rounds; laps "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stats["phases_s"].items())
+            + f" s; one full pass of the wide path == plain, {pass_ms:.3f} ms "
+            f"({1e6 * pass_ms / win:.1f} ns/position; bound {b_ms:.4f} ms, {b_by}; plain "
+            f"twin {plain_ms:.1f} ms); kernel C == plain, {sel_ms:.4f} ms (plain twin "
+            f"{sel_plain_ms:.1f} ms)  [{report}]")
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
-                    help="time kernel A, B, C or the SSP kernel (by the C entry "
-                         "OTHER.cu defines) "
+                    help="time kernel A, B, B's wide path, C or the SSP kernel (by "
+                         "the C entry OTHER.cu defines) "
                          "against another version of its source, in turns "
                          "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
-    from genome_downsampler_tpu_torch import _native
     from genome_downsampler_tpu_torch.device import gpu_report, require_cuda
-    from genome_downsampler_tpu_torch.ops import blocked, build
-    from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
-        BlockedWindowedMcpSolver,
-        _cross_window_offsets,
-    )
+    from genome_downsampler_tpu_torch.ops import build
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1577,29 +1867,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     batch = config4_batch()
-    W, B, L, chunk = BlockedWindowedMcpSolver("cuda")._geometry(
-        C4_GENOME, READ_LEN, C4_READS * READ_LEN / C4_GENOME
-    )
-    flat, counts, win, n_pad, cap, _ = _native.pack_flat_direct(
-        batch.start, batch.end, C4_GENOME, W, B, L, cap_multiple=chunk,
-        cap_floor=2 * chunk,
-    )
-    counts_d = torch.tensor(counts, device=dev)
-    c4 = {
-        "W": W, "B": B, "L": L, "win": win, "counts": counts_d,
-        "p32": blocked.expand_flat_codes(
-            torch.tensor(flat.view(np.int16), device=dev), counts_d, win // B, W, cap
-        ),
-        "target": torch.tensor(
-            _native.capped_target(batch.start, batch.end, n_pad, C4_M).reshape(W, win),
-            device=dev,
-        ),
-        "xwin": torch.tensor(
-            _cross_window_offsets(batch.start, batch.end, win, W, B, L), device=dev
-        ),
-    }
-    log(f"  config-4 data: {C4_READS} reads, {C4_GENOME} bases, W={W} B={B} L={L} "
-        f"cap={cap} nbw={win // B} ({time.perf_counter() - t0:.1f} s to make and pack)")
+    c4 = config4_inputs(dev, batch)
+    log(f"  config-4 data: {C4_READS} reads, {C4_GENOME} bases, W={c4['W']} B={c4['B']} "
+        f"L={c4['L']} cap={c4['p32'].shape[2]} nbw={c4['p32'].shape[0]} "
+        f"({time.perf_counter() - t0:.1f} s to make and pack)")
 
     phase("[2] kernel B (blocked sweep) vs plain twin")
     entries = [phase_sweep(dev, c4, report)]
@@ -1611,16 +1882,25 @@ def main(argv=None) -> int:
         return 0
     phase("[3] kernel C (selection) vs plain twin and argsort engine")
     entries.append(phase_select(dev, c4, report))
-    del c4
     phase("[3b] kernel B's wide path and kernel C at long spans vs plain twins")
-    wide_err, wide_ms = phase_wide_sweep(dev, report)
-    for ent in entries:
-        ent["max_abs_err"] = max(ent["max_abs_err"], wide_err)
-    entries[0]["wide_path"] = wide_ms
+    wide, sel_err = phase_wide_sweep(dev, c4, report)
+    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], sel_err)
+    del c4
+    torch.cuda.empty_cache()
+    phase("[3c] the wide path's main path: mcp-cuda-blocked on midnight-30kb, long-5mb "
+          "and artic-deep-30kb")
+    wide["long_reads"] = long = phase_long_reads(dev, report)
+    wide["launches"] = long["long-5mb"]["launches"]["blocked_sweep_wide"]
+    wide["max_abs_err"] = max(wide["max_abs_err"], *(v["max_abs_err"] for v in long.values()))
+    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"],
+                                    *(v["select_max_abs_err"] for v in long.values()))
+    for v in long.values():
+        v["launches"] = v["launches"]["blocked_sweep_wide"]
     phase("[4] main path at config-4 through mcp-cuda (blocked engine)")
     launches, host4 = phase_main_path(dev, batch, report)
     for ent in entries:
         ent["launches"] = launches[ent["name"]]
+    entries.append(wide)
     phase("[5] CLI BAM -> BAM")
     phase_cli(report)
     phase("[6] kernel A (dense sweep) vs plain twin")

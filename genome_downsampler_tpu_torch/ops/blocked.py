@@ -38,8 +38,8 @@ from genome_downsampler_tpu_torch.ops import build
 # path (csrc/blocked_sweep.cu) and the most reads of one window that may
 # start at one position there (its arrival counts are uint16); every other
 # L, a multiple of 32 up to _CUDA_MAX_SPAN, and deeper stacks take the wide
-# path (csrc/blocked_sweep_wide.cu: rings in shared memory, an int32 tile
-# where the stack needs it). Kernel C takes the same L.
+# path (csrc/blocked_sweep_wide.cu: per-end counts in shared memory and a
+# bitmask of the live ends). Kernel C takes the same L.
 _CUDA_MAX_BLOCK = 256
 _CUDA_SPANS = (32, 64, 128, 256, 384, 512, 640, 768)
 _CUDA_MAX_SPAN = 4096
@@ -180,6 +180,36 @@ def blocked_sweep_pass_plain(
     return out, avail, selend, availi
 
 
+def _kernel_b(entry, packed, counts, target, avail0, selend0, avail0i, W, B, L,
+              grid_offset, auto_target, max_coverage, *extra):
+    """Launch kernel B's C entry ``entry`` (its arguments, then ``extra``) on
+    checked CUDA tensors; returns the outputs of ``blocked_sweep_pass``."""
+    _check_cuda_span("sweep", L)
+    if B > _CUDA_MAX_BLOCK:
+        raise ValueError(f"CUDA sweep kernel supports block <= {_CUDA_MAX_BLOCK}; "
+                         f"got block={B}")
+    nbw, _, cap = packed.shape
+    dev = packed.device
+    args = [t.contiguous() for t in (counts, packed, avail0, selend0, avail0i)]
+    tgt = target.contiguous() if target is not None else None
+    out = torch.empty((W, (nbw - grid_offset) * B), dtype=torch.int32, device=dev)
+    availf, selendf, availfi = (
+        torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)
+    )
+    lib = build.load_kernels()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(
+            args[0].data_ptr(), args[1].data_ptr(),
+            tgt.data_ptr() if tgt is not None else None,
+            args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
+            out.data_ptr(), availf.data_ptr(), selendf.data_ptr(),
+            availfi.data_ptr(), nbw, W, cap, B, L, grid_offset,
+            int(auto_target), int(max_coverage), *extra,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(entry, rc)
+    return out, availf, selendf, availfi
+
+
 def blocked_sweep_pass(
     packed, counts, target, avail0, selend0, n_windows, block, max_span, *,
     grid_offset=0, avail0i=None, auto_target=False, max_coverage=0,
@@ -195,7 +225,13 @@ def blocked_sweep_pass(
     ``min(coverage, max_coverage)`` from the untaken ring ``avail0i``.
     ``grid_offset = k`` sweeps only blocks ``k..nbw-1`` (cold-started from
     the given carries at block ``k``): the seed pre-pass of
-    ``blocked_windowed_sweep``."""
+    ``blocked_windowed_sweep``.
+
+    On CUDA tensors the register path (``csrc/blocked_sweep.cu``) takes L
+    in ``_CUDA_SPANS`` with at most ``_CUDA_MAX_STARTS`` reads of a group
+    starting at one position; every other input goes to
+    ``blocked_sweep_wide``. ``launches`` counts the register path's
+    launches only."""
     if packed.device.type == "cpu":
         return blocked_sweep_pass_plain(
             packed, counts, target, avail0, selend0, n_windows, block,
@@ -207,40 +243,58 @@ def blocked_sweep_pass(
     W, B, L = n_windows, block, max_span
     avail0i = _sweep_args(packed, counts, target, avail0, selend0, avail0i,
                           W, B, L, grid_offset, auto_target)
-    _check_cuda_span("sweep", L)
-    if B > _CUDA_MAX_BLOCK:
-        raise ValueError(f"CUDA sweep kernel supports block <= {_CUDA_MAX_BLOCK}; "
-                         f"got block={B}")
-    nbw, _, cap = packed.shape
+    cap = packed.shape[2]
     # a group holds at most cap reads, so only a larger cap needs the count
-    wide_tile = cap > _CUDA_MAX_STARTS and _max_starts(packed, B, L) > _CUDA_MAX_STARTS
-    dev = packed.device
-    args = [t.contiguous() for t in (counts, packed, avail0, selend0, avail0i)]
-    tgt = target.contiguous() if target is not None else None
-    out = torch.empty((W, (nbw - grid_offset) * B), dtype=torch.int32, device=dev)
-    availf, selendf, availfi = (
-        torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)
-    )
-    lib = build.load_kernels()
-    ptrs = (args[0].data_ptr(), args[1].data_ptr(),
-            tgt.data_ptr() if tgt is not None else None,
-            args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
-            out.data_ptr(), availf.data_ptr(), selendf.data_ptr(),
-            availfi.data_ptr(), nbw, W, cap, B, L, grid_offset,
-            int(auto_target), int(max_coverage))
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if L in _CUDA_SPANS and not wide_tile:
-            name, rc = "gd_blocked_sweep", lib.gd_blocked_sweep(*ptrs, stream)
-        else:
-            name, rc = "gd_blocked_sweep_wide", lib.gd_blocked_sweep_wide(
-                *ptrs, int(wide_tile), stream)
-    build.check(name, rc)
+    deep = cap > _CUDA_MAX_STARTS and _max_starts(packed, B, L) > _CUDA_MAX_STARTS
+    kw = dict(grid_offset=grid_offset, avail0i=avail0i, auto_target=auto_target,
+              max_coverage=max_coverage)
+    if L not in _CUDA_SPANS or deep:
+        return blocked_sweep_wide(packed, counts, target, avail0, selend0, W, B, L,
+                                  **kw)
+    res = _kernel_b("gd_blocked_sweep", packed, counts, target, avail0, selend0,
+                    avail0i, W, B, L, grid_offset, auto_target, max_coverage)
     blocked_sweep_pass.launches += 1
-    return out, availf, selendf, availfi
+    return res
 
 
 blocked_sweep_pass.launches = 0
+
+
+def blocked_sweep_wide(
+    packed, counts, target, avail0, selend0, n_windows, block, max_span, *,
+    grid_offset=0, avail0i=None, auto_target=False, max_coverage=0,
+):
+    """``blocked_sweep_pass`` through kernel B's wide path
+    (``csrc/blocked_sweep_wide.cu``) whatever L (a multiple of 32 up to
+    ``_CUDA_MAX_SPAN``) and however many reads start at one position.
+    ``blocked_sweep_pass`` sends it the inputs its register path does not
+    take; a direct call times the wide path where both run. CPU tensors run
+    the plain twin. ``launches`` counts its launches.
+
+    Precondition of the CUDA kernel (not of the plain twin): each group's
+    codes are sorted by start (``code // L``), as the packers emit them; the
+    kernel reads each position's arrivals as one run of its group."""
+    if packed.device.type == "cpu":
+        return blocked_sweep_pass_plain(
+            packed, counts, target, avail0, selend0, n_windows, block,
+            max_span, grid_offset=grid_offset, avail0i=avail0i,
+            auto_target=auto_target, max_coverage=max_coverage,
+        )
+    if packed.device.type != "cuda":
+        raise ValueError(f"no blocked sweep for device {packed.device}")
+    W, B, L = n_windows, block, max_span
+    avail0i = _sweep_args(packed, counts, target, avail0, selend0, avail0i,
+                          W, B, L, grid_offset, auto_target)
+    # the C entry's last argument, wide_tile, is ignored: every count there
+    # is int32
+    res = _kernel_b("gd_blocked_sweep_wide", packed, counts, target, avail0,
+                    selend0, avail0i, W, B, L, grid_offset, auto_target,
+                    max_coverage, 1)
+    blocked_sweep_wide.launches += 1
+    return res
+
+
+blocked_sweep_wide.launches = 0
 
 
 def blocked_windowed_sweep(
@@ -310,7 +364,8 @@ def blocked_selection_pass_plain(packed, counts, sel, xwin, n_windows, block,
                                  max_span):
     """Plain torch twin of ``blocked_selection_pass``: the same rank
     decomposition, one block of all W windows per Python iteration, with
-    the within-group rank as a dense ``(W, cap, cap)`` comparison."""
+    the within-group rank from one sort of the block's slots by (window,
+    end, start, slot), so its memory is O(W cap), not O(W cap^2)."""
     W, B, L = n_windows, block, max_span
     _selection_args(packed, counts, sel, xwin, W, B, L)
     nbw, _, cap = packed.shape
@@ -319,9 +374,10 @@ def blocked_selection_pass_plain(packed, counts, sel, xwin, n_windows, block,
     # sel with its halo: each window continues into the next one's head,
     # the last into zeros (the global end coordinate, read past the window)
     sel_ext = torch.cat([sel, torch.zeros(B + L, dtype=torch.int32, device=dev)])
-    w_base = torch.arange(W, device=dev)[:, None] * win
+    w_idx = torch.arange(W, device=dev)[:, None]
+    w_base = w_idx * win
     slot = torch.arange(cap, device=dev)
-    earlier = slot[:, None] < slot[None, :]  # [j, s]: j before s
+    idx = torch.arange(W * cap, device=dev)
     acc = xwin.clone()
     out = torch.zeros((nbw, W, cap), dtype=torch.int8, device=dev)
     for t in range(nbw):
@@ -331,13 +387,16 @@ def blocked_selection_pass_plain(packed, counts, sel, xwin, n_windows, block,
         sr = c // L
         er = sr + c % L
         # rank_in_group[w, s] = # valid j: same end and (start_j < start_s
-        # or same start and j before s)
-        same_end = er[:, :, None] == er[:, None, :]
-        before = (sr[:, :, None] < sr[:, None, :]) | (
-            (sr[:, :, None] == sr[:, None, :]) & earlier
-        )
-        rank = (same_end & before & valid[:, :, None]).sum(1, dtype=torch.int32)
-        rank = rank + torch.gather(acc, 1, er)
+        # or same start and j before s) = s's place among the valid slots
+        # sorted by (window, end, start, slot) less its end's first place
+        # (sr < B, er < B + L; pads sort last)
+        bucket = (w_idx * (B + L) + er) * B * cap
+        key = torch.where(valid, bucket + sr * cap + slot, W * (B + L) * B * cap)
+        keys, order = torch.sort(key.reshape(-1))
+        place = torch.empty_like(order)
+        place[order] = idx
+        rank = (place - torch.searchsorted(keys, bucket.reshape(-1))).reshape(W, cap)
+        rank = rank.to(torch.int32) + torch.gather(acc, 1, er)
         quota = sel_ext[(w_base + t * B + er).reshape(-1)].reshape(W, cap)
         out[t] = ((rank < quota) & valid).to(torch.int8)
         coltot = torch.zeros((W, B + L), dtype=torch.int32, device=dev)

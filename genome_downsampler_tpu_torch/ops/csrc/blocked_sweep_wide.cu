@@ -11,26 +11,54 @@
 // blocked_sweep.cu computes (see there), bit for bit, from the same
 // arguments.
 //
-// What bounds it. As kernel B's register path: one warp's chain per
-// position, times the positions. Here the chain runs over shared memory:
-// per position each lane reads and writes its S slots of the two rings
-// three times, separated by __syncwarp, so a position costs O(S) shared
-// accesses a lane instead of O(1) registers and shuffles.
+// The step in avail form. The slot-wise step (suffix sums F, take[k] =
+// clip(deficit - F[k+1], 0, F[k] - F[k+1]), F -= min(taken, F)) takes
+// taken = min(max(tgt - cur, 0), A) reads from the farthest ends down, A
+// being the reads available. So a position needs O(1) work (the deficit,
+// the emit, the expiry of the nearest end), O(1) per read that arrives and
+// O(1) per end slot the take empties, once the highest live end can be
+// found without a pass over the ring.
 //
-// What the design does. Kernel B's warp specialisation, unchanged: warp 0
-// sweeps, warps 1-3 build the next chunk's suffix-form arrival tile, its
-// targets and the availi carry, and flush the emitted counts; FULL and
-// EMPTY named barriers per buffer. The difference is the state: the avail
-// (suffix form F) and selend rings live in shared memory as circular
-// arrays, slot k of the ring at (h + k) mod L, so the shift is h += 1 and
-// one cleared slot. Lane l owns the slots l, l + 32, ... (no bank
-// conflicts). The tile's cell type T is uint16 (packed 32-bit atomics, as
-// kernel B) or int32 (any count); the chunk P is the largest power of two
-// up to 128 positions whose two (P, L) tiles, the rings and the availi ring
-// fit the 227 KB a CTA may have (P = 8 at L = 4096 in uint16, 4 in int32).
+// What bounds it. One warp's chain per window and position, on W <= 64 of
+// 132 SMs: O(1) shared-memory steps a position plus O(arrivals + emptied
+// slots); amortised, each emptied slot is paid for by the arrivals that
+// filled it; on a deep stack, the sweep warp's 32 arrivals a step. With
+// one warp issuing, the chain's dependent instructions and
+// shared-memory round trips set the time, not the card's rates: the bytes
+// (codes, counts, the emitted counts, the carries) are microseconds of its
+// memory rate.
 //
-// Preconditions: as blocked_sweep.cu; L a multiple of 32 up to 4096; with
-// the uint16 tile, at most 65535 reads of a window start at one position.
+// What the design does. Per window (one CTA) the per-end counts avail[L]
+// and selend[L] live in shared memory indexed by the absolute end mod L, so
+// the shift is h += 1 and one cleared slot; a bitmask of the non-empty
+// avail slots (L/32 words, lane l keying words l, l + 32, ...) finds the
+// highest live end in ring order with one warp max (__reduce_max_sync) and
+// one __clz; the scalars A = sum(avail) and cur = sum(selend) replace every
+// reduction. Warp 0 sweeps; warps 1-3 produce each block's per-position
+// offsets into the group's start-sorted codes (each position's arrivals are
+// one run there), its targets and the availi carry, and flush the emitted
+// counts, double-buffered between FULL and EMPTY named barriers. Each
+// producer takes a contiguous share of the group's codes, 8 loads at a
+// time, skips a batch equal to its current code with one compare, and adds
+// each run of equal codes to the coverage ring once: a deep stack (tens of
+// thousands of reads with a few spans at one position) no longer costs a
+// contended atomic and a load round trip per code. At a quiet position (no
+// arrival, no take, nothing ending there: it only emits 0) the sweep warp
+// looks 32 positions ahead, one a lane, and skips the quiet run with one
+// ballot; at any other position it reads the arrival codes itself and
+// folds them in with shared atomics, one a lane, 32 codes at a time
+// (integer sums, so the order does not matter). Kept simple on purpose:
+// keeping the top's distance across positions, loading the next run's
+// codes a position ahead, or folding runs of equal codes in the sweep warp
+// (across lanes or 16 codes a lane) each measured slower off the stacks
+// (PERF.md §6). Shared memory is
+// 8L bytes of counts, L/8 of mask, the availi ring (the least power of two
+// above B + L ints) and 6 KB of offsets, targets and outputs: 71 KB at
+// L = 4096, so the block need not shrink as L grows.
+//
+// Preconditions: as blocked_sweep.cu; L a multiple of 32 up to 4096; B at
+// most 256; each group's codes sorted by start (code / L), as the packers
+// emit them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,208 +78,282 @@ constexpr int kBarFull = 1;
 constexpr int kBarEmpty = 3;
 constexpr int kBarProducers = 5;
 constexpr int kMaxSpan = 4096;
+constexpr int kMaxBlock = 256;
+constexpr int kWordsPerLane = kMaxSpan / 32 / 32;  // mask words a lane keys
+constexpr int kLoads = 8;  // codes a producer loads at once
 constexpr size_t kMaxSmem = 232448;  // the most a CTA may have on sm_90
 
-// one more read starting at row cell e of a tile
-__device__ __forceinline__ void tile_add(uint16_t* tile, int e) {
-  atomicAdd(reinterpret_cast<uint32_t*>(tile) + (e >> 1), 1u << ((e & 1) * 16));
-}
-__device__ __forceinline__ void tile_add(int32_t* tile, int e) { atomicAdd(tile + e, 1); }
-
-struct Chunk {
-  int64_t t_rel, q0;
-  int b0, len;
-  __device__ Chunk(int64_t c, int B, int P, int cpb) {
-    t_rel = c / cpb;
-    b0 = static_cast<int>(c - t_rel * cpb) * P;
-    len = min(P, B - b0);
-    q0 = t_rel * B + b0;
+// The highest live end in ring order (physical slot h - 1 down to 0, then
+// L - 1 down to h), on every lane. Lane l keys its mask words l, l + 32, ...:
+// a word's live slots below h outrank every slot at or above h (key 257 + j
+// against 1 + j), the warp takes the largest key, the owner lane hands over
+// its masked word, and its highest bit is the slot; -1 if no slot is live.
+__device__ __forceinline__ int top_slot(const uint32_t* mk, int h, int nw, int lane) {
+  const int hw = h >> 5;
+  const uint32_t hlo = (1u << (h & 31)) - 1u;
+  int key = 0;
+  uint32_t word = 0;
+#pragma unroll
+  for (int i = 0; i < kWordsPerLane; ++i) {
+    const int j = lane + 32 * i;
+    if (j < nw) {
+      const uint32_t m = mk[j];
+      const uint32_t lo = j < hw ? m : (j == hw ? (m & hlo) : 0u);
+      const uint32_t hi = m & ~lo;
+      // j grows with i, so a later word's key of the same region is larger
+      if (lo) {
+        key = 257 + j;
+        word = lo;
+      } else if (hi && key < 257) {
+        key = 1 + j;
+        word = hi;
+      }
+    }
   }
-};
-
-// the ring position of slot k (0 <= k < 2L) when slot 0 is at h
-__device__ __forceinline__ int phys(int k, int h, int L) {
-  const int p = k + h;
-  return p >= L ? p - L : p;
+  const int top = __reduce_max_sync(kFull, key);
+  if (top == 0) return -1;
+  const int j = top > 256 ? top - 257 : top - 1;
+  const uint32_t w = __shfl_sync(kFull, word, j & 31);
+  return 32 * j + 31 - __clz(w);
 }
 
-// warp 0: the sweep over every chunk, rings in shared memory
-template <class T>
-__device__ void sweep_warp(const T* tile, const int32_t* tgt_s, int32_t* out_s,
-                           int32_t* F, int32_t* Se,
+// one more read ending at physical slot p (wrapped from [0, 2L))
+__device__ __forceinline__ void arrive(int32_t* av, uint32_t* mk, int p, int L) {
+  if (p >= L) p -= L;
+  atomicAdd(av + p, 1);
+  atomicOr(mk + (p >> 5), 1u << (p & 31));
+}
+
+// warp 0: the sweep over every block, per-end counts in shared memory
+__device__ void sweep_warp(const int32_t* off_s, const int32_t* tgt_s, int32_t* out_s,
+                           int32_t* av, int32_t* se, uint32_t* mk,
+                           const int32_t* __restrict__ packed,
                            const int32_t* __restrict__ avail0,
                            const int32_t* __restrict__ selend0,
                            int32_t* __restrict__ availf, int32_t* __restrict__ selendf,
-                           int64_t w, int lane, int L, int B, int P, int cpb,
-                           int64_t nchunks) {
-  // ---- carries in: avail form -> suffix form, 32 slots at a time from the
-  // top; cur = sum(selend)
-  int run = 0, cur = 0;
-  for (int k0 = L - 32; k0 >= 0; k0 -= 32) {
-    int v = avail0[w * L + k0 + lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_down_sync(kFull, v, o);
-      if (lane + o < 32) v += u;
-    }
-    v += run;
-    F[k0 + lane] = v;
-    run = __shfl_sync(kFull, v, 0);
-    const int se = selend0[w * L + k0 + lane];
-    Se[k0 + lane] = se;
-    cur += se;
+                           int64_t w, int lane, int L, int B, int64_t W, int64_t cap,
+                           int64_t grid_offset, int64_t nblocks) {
+  const int nw = L >> 5;
+  // ---- carries in (avail form, slot k at physical k: h = 0); A, cur
+  int A = 0, cur = 0;
+  for (int k0 = 0; k0 < L; k0 += 32) {
+    const int a = avail0[w * L + k0 + lane];
+    const int s = selend0[w * L + k0 + lane];
+    av[k0 + lane] = a;
+    se[k0 + lane] = s;
+    const unsigned live = __ballot_sync(kFull, a != 0);
+    if (lane == 0) mk[k0 >> 5] = live;
+    A += a;
+    cur += s;
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) cur += __shfl_xor_sync(kFull, cur, o);
+  for (int o = 16; o > 0; o >>= 1) {
+    A += __shfl_xor_sync(kFull, A, o);
+    cur += __shfl_xor_sync(kFull, cur, o);
+  }
   __syncwarp();
 
   int h = 0;
 #pragma unroll 1
-  for (int64_t c = 0; c < nchunks; ++c) {
+  for (int64_t c = 0; c < nblocks; ++c) {
     const int buf = static_cast<int>(c & 1);
-    const int len = Chunk(c, B, P, cpb).len;
     bar_sync(kBarFull + buf, kThreads);
-    const T* rows = tile + static_cast<size_t>(buf) * P * L;
-    const int32_t* tg = tgt_s + buf * P;
-    int32_t* em_s = out_s + buf * P;
+    const int32_t* of = off_s + buf * (kMaxBlock + 1);
+    const int32_t* tg = tgt_s + buf * kMaxBlock;
+    int32_t* em_s = out_s + buf * kMaxBlock;
+    const int32_t* __restrict__ g = packed + ((grid_offset + c) * W + w) * cap;
+    int b = 0;
 #pragma unroll 1
-    for (int b = 0; b < len; ++b) {
-      const T* row = rows + static_cast<size_t>(b) * L;
-      // fold in the arrivals (suffix form)
-      for (int k = lane; k < L; k += 32) F[phys(k, h, L)] += static_cast<int>(row[k]);
-      __syncwarp();
-      const int deficit = tg[b] - cur;
-      const int taken = min(max(deficit, 0), F[h]);
-      // take[k] = clip(deficit - F[k+1], 0, F[k] - F[k+1]) into selend
-      for (int k = lane; k < L; k += 32) {
-        const int p = phys(k, h, L);
-        const int G = k + 1 < L ? F[phys(k + 1, h, L)] : 0;
-        Se[p] += min(max(deficit - G, 0), F[p] - G);
+    while (b < B) {
+      // position b's run, target and the two slots at h, and its first 32
+      // arrival codes (the load in flight while the step goes on)
+      const int o0 = of[b], o1 = of[b + 1], tgt = tg[b];
+      const int code = o0 + lane < o1 ? g[o0 + lane] : 0;
+      if (o0 == o1 && tgt <= cur && av[h] == 0 && se[h] == 0) {
+        // position b is quiet: nothing arrives, nothing is taken (tgt <=
+        // cur), nothing ends there. Lane i looks at position b + i; up to
+        // the first that is not quiet, cur and A stay and each position
+        // only emits 0 and advances h.
+        const int i = b + lane;
+        const int hp = h + lane < L ? h + lane : h + lane - L;
+        const bool quiet = i < B && of[i + 1] == of[i] && tg[i] <= cur && av[hp] == 0 &&
+                           se[hp] == 0;
+        const unsigned busy = __ballot_sync(kFull, !quiet);
+        const int k = busy ? __ffs(busy) - 1 : 32;
+        if (lane < k) em_s[b + lane] = 0;
+        b += k;
+        h = h + k < L ? h + k : h + k - L;
+        continue;
       }
-      __syncwarp();
-      const int em = Se[h];
-      for (int k = lane; k < L; k += 32) {
-        const int p = phys(k, h, L);
-        F[p] -= min(taken, F[p]);
+      const int n = o1 - o0;
+      if (n > 0) {
+        // code - b * L is the span - 1: the end's distance from h
+        const int base = h - b * L;
+        if (lane < n) arrive(av, mk, base + code, L);
+        for (int j = o0 + 32 + lane; j < o1; j += 32) arrive(av, mk, base + g[j], L);
+        __syncwarp();
+        A += n;
       }
-      __syncwarp();
-      // emit selend[0]; shift both rings: slot 0 leaves and becomes the
-      // empty top slot
+      const int taken = min(max(tgt - cur, 0), A);
+      // take from the highest live end down: each step ends the take or
+      // empties a slot (whose bit it clears)
+      for (int rem = taken; rem > 0;) {
+        const int p = top_slot(mk, h, nw, lane);
+        if (p < 0) break;  // A counts every live read: only bad carries get here
+        int a = 0;
+        if (lane == 0) a = av[p];
+        a = __shfl_sync(kFull, a, 0);
+        const int x = min(a, rem);
+        if (lane == 0) {
+          av[p] = a - x;
+          se[p] += x;
+          if (a == x) mk[p >> 5] &= ~(1u << (p & 31));
+        }
+        rem -= x;
+        __syncwarp();
+      }
+      // emit selend at h; the untaken reads ending at h leave; slot h
+      // becomes the empty top slot
+      int e = 0, a = 0;
       if (lane == 0) {
-        em_s[b] = em;
-        F[h] = 0;
-        Se[h] = 0;
+        e = se[h];
+        a = av[h];
+        em_s[b] = e;
+        se[h] = 0;
+        av[h] = 0;
+        if (a) mk[h >> 5] &= ~(1u << (h & 31));  // a slot's bit is set iff its count is not 0
       }
+      e = __shfl_sync(kFull, e, 0);
+      a = __shfl_sync(kFull, a, 0);
+      cur += taken - e;
+      A -= taken + a;
       h = h + 1 == L ? 0 : h + 1;
-      cur += taken - em;
+      ++b;
       __syncwarp();
     }
     bar_arrive(kBarEmpty + buf, kThreads);
   }
 
-  // ---- carries out: suffix form -> avail form
+  // ---- carries out: slot k at physical (h + k) mod L
   for (int k = lane; k < L; k += 32) {
-    const int p = phys(k, h, L);
-    const int nf = k + 1 < L ? F[phys(k + 1, h, L)] : 0;
-    availf[w * L + k] = F[p] - nf;
-    selendf[w * L + k] = Se[p];
+    const int p = h + k < L ? h + k : h + k - L;
+    availf[w * L + k] = av[p];
+    selendf[w * L + k] = se[p];
   }
 }
 
-// warps 1..kProducerWarps: tiles, targets and the output of every chunk
-// (kernel B's producers with L at run time and a tile of T)
-template <class T, bool AUTO>
-__device__ void produce(T* tile, int32_t* tgt_s, int32_t* out_s, int32_t* ring,
+// warps 1..kProducerWarps: per block the offsets of each position's run in
+// the group's codes, the targets, and the output flush
+template <bool AUTO>
+__device__ void produce(int32_t* off_s, int32_t* tgt_s, int32_t* out_s, int32_t* ring,
                         const int32_t* __restrict__ counts,
                         const int32_t* __restrict__ packed,
                         const int32_t* __restrict__ target,
                         const int32_t* __restrict__ avail0i,
                         int32_t* __restrict__ out, int32_t* __restrict__ availfi,
                         int64_t w, int64_t nbw, int64_t W, int64_t cap, int L, int B,
-                        int P, int R, int cpb, int64_t nchunks, int64_t grid_offset,
+                        int R, int64_t nblocks, int64_t grid_offset,
                         int32_t max_coverage) {
   const int pt = threadIdx.x - 32;
   const int pw = pt >> 5;
   const int lane = pt & 31;
-  const int64_t npos = (nbw - grid_offset) * B;
+  const int64_t npos = nblocks * B;
   int32_t* const o = out + w * npos;
 
   auto flush = [&](int64_t c) {
-    const Chunk ch(c, B, P, cpb);
-    const int32_t* src = out_s + (c & 1) * P;
-    for (int i = pt; i < ch.len; i += kProducers) o[ch.q0 + i] = src[i];
+    const int32_t* src = out_s + (c & 1) * kMaxBlock;
+    for (int i = pt; i < B; i += kProducers) o[c * B + i] = src[i];
   };
 
-  int run = 0;
+  int cover = 0;  // the coverage at the position before the block
   if (AUTO) {
     for (int i = pt; i < R; i += kProducers) ring[i] = 0;
     bar_sync(kBarProducers, kProducers);
     for (int k = pt; k < L; k += kProducers) ring[k + 1] = avail0i[w * L + k];
     if (pw == 0) {
-      for (int k = lane; k < L; k += 32) run += avail0i[w * L + k];
+      for (int k = lane; k < L; k += 32) cover += avail0i[w * L + k];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) run += __shfl_xor_sync(kFull, run, off);
+      for (int off = 16; off > 0; off >>= 1) cover += __shfl_xor_sync(kFull, cover, off);
     }
+    // the first block's arrivals add to slots these stores write
+    bar_sync(kBarProducers, kProducers);
   } else {
     for (int k = pt; k < L; k += kProducers) availfi[w * L + k] = avail0i[w * L + k];
   }
 
 #pragma unroll 1
-  for (int64_t c = 0; c < nchunks; ++c) {
+  for (int64_t c = 0; c < nblocks; ++c) {
     const int buf = static_cast<int>(c & 1);
-    const Chunk ch(c, B, P, cpb);
-    const int64_t t = grid_offset + ch.t_rel;
-    T* tb = tile + static_cast<size_t>(buf) * P * L;
+    const int64_t t = grid_offset + c;
+    const int64_t q0 = c * B;
     if (c >= 2) {
       bar_sync(kBarEmpty + buf, kThreads);
       flush(c - 2);
     }
-    // ---- the arrival tile: zero, scatter, suffix-sum over k
-    uint4* t4 = reinterpret_cast<uint4*>(tb);
-    const int n16 = static_cast<int>(ch.len * L * sizeof(T) / 16);
-    for (int i = pt; i < n16; i += kProducers) t4[i] = make_uint4(0, 0, 0, 0);
-    bar_sync(kBarProducers, kProducers);
-    {
-      const int cnt = counts[t * W + w];
-      const int32_t* __restrict__ g = packed + (t * W + w) * cap;
-      for (int i = pt; i < cnt; i += kProducers) {
-        const int code = g[i];
-        const int sr = code / L;
-        const int sp = code - sr * L;
-        const int b = sr - ch.b0;
-        if (b >= 0 && b < ch.len) {
-          tile_add(tb, b * L + sp);
-          if (AUTO) atomicAdd(&ring[(ch.q0 + b + sp + 1) & (R - 1)], 1);
-        }
-      }
+    // ---- of[b]: the first code of the group starting at b or later. Code
+    // i writes of[b] for b in (start of code i - 1, start of code i], the
+    // last code also every b after its start: each entry once. Each
+    // producer takes a contiguous share of the codes, kLoads at a time, and
+    // adds each run of equal codes to the coverage ring at once: a deep
+    // stack costs a load round trip per kLoads codes a producer, not one
+    // contended atomic per code.
+    int32_t* of = off_s + buf * (kMaxBlock + 1);
+    const int cnt = counts[t * W + w];
+    const int32_t* __restrict__ g = packed + (t * W + w) * cap;
+    if (cnt == 0) {
+      for (int b = pt; b <= B; b += kProducers) of[b] = 0;
     }
-    bar_sync(kBarProducers, kProducers);
-    for (int b = pw; b < ch.len; b += kProducerWarps) {
-      T* row = tb + static_cast<size_t>(b) * L;
-      int above = 0;
-      for (int k0 = L - 32; k0 >= 0; k0 -= 32) {
-        int v = static_cast<int>(row[k0 + lane]);
+    const int per = (cnt + kProducers - 1) / kProducers;
+    const int i0 = min(pt * per, cnt), i1 = min(i0 + per, cnt);
+    int pc = -1, ps = -1, run = 0;  // the code before i, its start, its run here
+    if (i0 > 0 && i0 < i1) {
+      pc = g[i0 - 1];
+      ps = min(pc / L, B);  // a start past the block reads as B
+    }
+    // the run of pc leaves the coverage after its end, at q0 + ps + span
+    auto leave = [&]() {
+      if (AUTO && run && ps < B) atomicAdd(&ring[(q0 + ps + (pc - ps * L) + 1) & (R - 1)], run);
+    };
+#pragma unroll 1
+    for (int i = i0; i < i1; i += kLoads) {
+      int q[kLoads];
+      bool same = true;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int u = __shfl_down_sync(kFull, v, off);
-          if (lane + off < 32) v += u;
+      for (int u = 0; u < kLoads; ++u) {
+        q[u] = i + u < i1 ? g[i + u] : -1;
+        same &= q[u] == pc;
+      }
+      if (same) {  // a stack: kLoads more of the run of pc (pc is a code here)
+        run += kLoads;
+        continue;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        if (q[u] >= 0 && q[u] != pc) {
+          leave();
+          const int sr = min(q[u] / L, B);
+          for (int b = ps + 1; b <= sr; ++b) of[b] = i + u;
+          pc = q[u];
+          ps = sr;
+          run = 0;
         }
-        v += above;
-        row[k0 + lane] = static_cast<T>(v);
-        above = __shfl_sync(kFull, v, 0);
+        run += q[u] >= 0;
       }
     }
+    leave();
+    if (i0 < i1 && i1 == cnt)
+      for (int b = ps + 1; b <= B; ++b) of[b] = cnt;
     bar_sync(kBarProducers, kProducers);
-    // ---- the chunk's targets
-    int32_t* tg = tgt_s + buf * P;
+    // ---- the block's targets
+    int32_t* tg = tgt_s + buf * kMaxBlock;
     if (AUTO) {
       if (pw == 0) {
-        for (int i0 = 0; i0 < ch.len; i0 += 32) {
+        for (int i0 = 0; i0 < B; i0 += 32) {
           const int i = i0 + lane;
           int v = 0;
-          if (i < ch.len) {
-            const int slot = static_cast<int>((ch.q0 + i) & (R - 1));
-            v = static_cast<int>(tb[static_cast<size_t>(i) * L]) - ring[slot];
+          if (i < B) {
+            const int slot = static_cast<int>((q0 + i) & (R - 1));
+            v = of[i + 1] - of[i] - ring[slot];
             ring[slot] = 0;
           }
 #pragma unroll
@@ -259,18 +361,20 @@ __device__ void produce(T* tile, int32_t* tgt_s, int32_t* out_s, int32_t* ring,
             const int u = __shfl_up_sync(kFull, v, off);
             if (lane >= off) v += u;
           }
-          if (i < ch.len) tg[i] = min(run + v, max_coverage);
-          run += __shfl_sync(kFull, v, 31);
+          if (i < B) tg[i] = min(cover + v, max_coverage);
+          cover += __shfl_sync(kFull, v, 31);
         }
       }
+      // the next block's arrivals go into the ring only after these reads
+      bar_sync(kBarProducers, kProducers);
     } else {
-      const int32_t* src = target + w * nbw * B + t * B + ch.b0;
-      for (int i = pt; i < ch.len; i += kProducers) tg[i] = src[i];
+      const int32_t* src = target + w * nbw * B + t * B;
+      for (int i = pt; i < B; i += kProducers) tg[i] = src[i];
     }
     bar_arrive(kBarFull + buf, kThreads);
   }
 
-  for (int64_t c = nchunks > 2 ? nchunks - 2 : 0; c < nchunks; ++c) {
+  for (int64_t c = nblocks > 2 ? nblocks - 2 : 0; c < nblocks; ++c) {
     bar_sync(kBarEmpty + static_cast<int>(c & 1), kThreads);
     flush(c);
   }
@@ -281,63 +385,56 @@ __device__ void produce(T* tile, int32_t* tgt_s, int32_t* out_s, int32_t* ring,
   }
 }
 
-template <class T, bool AUTO>
+template <bool AUTO>
 __global__ void __launch_bounds__(kThreads) blocked_sweep_wide_kernel(
     const int32_t* __restrict__ counts, const int32_t* __restrict__ packed,
     const int32_t* __restrict__ target, const int32_t* __restrict__ avail0,
     const int32_t* __restrict__ selend0, const int32_t* __restrict__ avail0i,
     int32_t* __restrict__ out, int32_t* __restrict__ availf,
     int32_t* __restrict__ selendf, int32_t* __restrict__ availfi, int64_t nbw,
-    int64_t W, int64_t cap, int L, int B, int P, int R, int64_t grid_offset,
+    int64_t W, int64_t cap, int L, int B, int R, int64_t grid_offset,
     int32_t max_coverage) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* tile = reinterpret_cast<T*>(smem);                                    // [2][P][L]
-  int32_t* F = reinterpret_cast<int32_t*>(tile + static_cast<size_t>(2) * P * L);  // [L]
-  int32_t* Se = F + L;                                                     // [L]
-  int32_t* tgt_s = Se + L;                                                 // [2][P]
-  int32_t* out_s = tgt_s + 2 * P;                                          // [2][P]
-  int32_t* ring = out_s + 2 * P;                                           // [R]
+  int32_t* av = reinterpret_cast<int32_t*>(smem);                    // [L]
+  int32_t* se = av + L;                                              // [L]
+  uint32_t* mk = reinterpret_cast<uint32_t*>(se + L);                // [L / 32]
+  int32_t* off_s = reinterpret_cast<int32_t*>(mk + (L >> 5));        // [2][kMaxBlock + 1]
+  int32_t* tgt_s = off_s + 2 * (kMaxBlock + 1);                      // [2][kMaxBlock]
+  int32_t* out_s = tgt_s + 2 * kMaxBlock;                            // [2][kMaxBlock]
+  int32_t* ring = out_s + 2 * kMaxBlock;                             // [R]
 
   const int64_t w = blockIdx.x;
-  const int cpb = (B + P - 1) / P;
-  const int64_t nchunks = (nbw - grid_offset) * cpb;
+  const int64_t nblocks = nbw - grid_offset;
   if (threadIdx.x < 32) {
-    sweep_warp<T>(tile, tgt_s, out_s, F, Se, avail0, selend0, availf, selendf, w,
-                  threadIdx.x, L, B, P, cpb, nchunks);
+    sweep_warp(off_s, tgt_s, out_s, av, se, mk, packed, avail0, selend0, availf, selendf,
+               w, threadIdx.x, L, B, W, cap, grid_offset, nblocks);
   } else {
-    produce<T, AUTO>(tile, tgt_s, out_s, ring, counts, packed, target, avail0i, out,
-                     availfi, w, nbw, W, cap, L, B, P, R, cpb, nchunks, grid_offset,
-                     max_coverage);
+    produce<AUTO>(off_s, tgt_s, out_s, ring, counts, packed, target, avail0i, out, availfi,
+                  w, nbw, W, cap, L, B, R, nblocks, grid_offset, max_coverage);
   }
 }
 
-template <class T>
-size_t smem_bytes(int L, int P, int R) {
-  return sizeof(T) * 2 * static_cast<size_t>(P) * L + sizeof(int32_t) * (2 * L + 4 * P + R);
-}
-
-template <class T, bool AUTO>
+template <bool AUTO>
 cudaError_t launch(const int32_t* counts, const int32_t* packed, const int32_t* target,
                    const int32_t* avail0, const int32_t* selend0, const int32_t* avail0i,
                    int32_t* out, int32_t* availf, int32_t* selendf, int32_t* availfi,
                    int64_t nbw, int64_t W, int64_t cap, int L, int B,
                    int64_t grid_offset, int32_t max_coverage, cudaStream_t stream) {
-  // the chunk: the largest power of two up to 128 positions that fits
-  int P = 128, R = 1;
-  for (;; P >>= 1) {
-    R = 1;
-    while (R < P + L + 1) R <<= 1;
-    if (smem_bytes<T>(L, P, R) <= kMaxSmem || P == 1) break;
-  }
-  const size_t smem = smem_bytes<T>(L, P, R);
+  // the availi ring: a power of two above B + L, so a block's arrivals
+  // never reach a slot still to be read
+  int R = 1;
+  if (AUTO)
+    while (R < B + L + 1) R <<= 1;
+  const size_t smem = sizeof(int32_t) * (2 * static_cast<size_t>(L) + L / 32 +
+                                         6 * kMaxBlock + 2 + (AUTO ? R : 0));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = blocked_sweep_wide_kernel<T, AUTO>;
+  auto kernel = blocked_sweep_wide_kernel<AUTO>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   kernel<<<static_cast<unsigned>(W), kThreads, smem, stream>>>(
       counts, packed, target, avail0, selend0, avail0i, out, availf, selendf, availfi,
-      nbw, W, cap, L, B, P, R, grid_offset, max_coverage);
+      nbw, W, cap, L, B, R, grid_offset, max_coverage);
   return cudaGetLastError();
 }
 
@@ -345,15 +442,16 @@ cudaError_t launch(const int32_t* counts, const int32_t* packed, const int32_t* 
 
 // Returns the cudaError_t of the launch (0 on success). The arguments are
 // gd_blocked_sweep's, with any L = 32 * S up to 4096 and B at most 256;
-// wide_tile != 0 keeps the arrival counts in int32 (any number of reads
-// starting at one position), else in uint16 (at most 65535).
+// wide_tile (which chose uint16 or int32 arrival counts in an earlier
+// version) is ignored: every count here is int32.
 extern "C" int gd_blocked_sweep_wide(
     const void* counts, const void* packed, const void* target, const void* avail0,
     const void* selend0, const void* avail0i, void* out, void* availf, void* selendf,
     void* availfi, int64_t nbw, int64_t W, int64_t cap, int64_t B, int64_t L,
     int64_t grid_offset, int64_t auto_target, int64_t max_coverage, int64_t wide_tile,
     void* stream) {
-  if (B > 256 || B < 1 || W < 1 || grid_offset < 0 || grid_offset >= nbw || cap < 0 ||
+  (void)wide_tile;
+  if (B > kMaxBlock || B < 1 || W < 1 || grid_offset < 0 || grid_offset >= nbw || cap < 0 ||
       L < 32 || L > kMaxSpan || L % 32 != 0)
     return (int)cudaErrorInvalidValue;
   auto c = static_cast<const int32_t*>(counts);
@@ -369,16 +467,9 @@ extern "C" int gd_blocked_sweep_wide(
   auto st = static_cast<cudaStream_t>(stream);
   const int32_t m = static_cast<int32_t>(max_coverage);
   const int l = static_cast<int>(L), b = static_cast<int>(B);
-  if (wide_tile) {
-    if (auto_target)
-      return (int)launch<int32_t, true>(c, p, tg, a0, s0, i0, o, af, sf, fi, nbw, W, cap,
-                                        l, b, grid_offset, m, st);
-    return (int)launch<int32_t, false>(c, p, tg, a0, s0, i0, o, af, sf, fi, nbw, W, cap,
-                                       l, b, grid_offset, m, st);
-  }
   if (auto_target)
-    return (int)launch<uint16_t, true>(c, p, tg, a0, s0, i0, o, af, sf, fi, nbw, W, cap,
-                                       l, b, grid_offset, m, st);
-  return (int)launch<uint16_t, false>(c, p, tg, a0, s0, i0, o, af, sf, fi, nbw, W, cap,
-                                      l, b, grid_offset, m, st);
+    return (int)launch<true>(c, p, tg, a0, s0, i0, o, af, sf, fi, nbw, W, cap, l, b,
+                             grid_offset, m, st);
+  return (int)launch<false>(c, p, tg, a0, s0, i0, o, af, sf, fi, nbw, W, cap, l, b,
+                            grid_offset, m, st);
 }

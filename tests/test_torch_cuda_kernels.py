@@ -195,7 +195,7 @@ def test_sweep_kernel_b_takes_groups_beyond_32768_codes(cuda, hot, spread):
 @pytest.mark.parametrize("hot", [70_000, 100_000])
 def test_sweep_kernel_b_takes_more_than_65535_starts_at_one_position(cuda, hot):
     """More reads of a window start at one position than uint16 counts: the
-    wrapper counts them and launches the wide path with an int32 tile."""
+    wrapper counts them and launches the wide path (int32 counts)."""
     rng = np.random.default_rng(hot)
     W, B, L, n = 2, 64, 64, 256
     start = rng.integers(0, n - L, 2 * n)
@@ -216,10 +216,11 @@ def test_sweep_kernel_b_takes_more_than_65535_starts_at_one_position(cuda, hot):
                                 else np.zeros((W, L), np.int32), device=cuda)
                    for _ in range(3)]
         kw = dict(avail0i=carries[2], auto_target=auto, max_coverage=m if auto else 0)
-        n0 = blocked.blocked_sweep_pass.launches
+        n0 = (blocked.blocked_sweep_pass.launches, blocked.blocked_sweep_wide.launches)
         got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
         torch.cuda.synchronize()
-        assert blocked.blocked_sweep_pass.launches == n0 + 1
+        assert (blocked.blocked_sweep_pass.launches,
+                blocked.blocked_sweep_wide.launches) == (n0[0], n0[1] + 1)
         ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B,
                                                L, **kw)
         for g_, r in zip(got, ref):
@@ -242,10 +243,11 @@ def _long_case(L, seed, B=128, W=4):
 
 @pytest.mark.parametrize("auto,grid_offset,seeded", [(True, 0, False), (False, 1, True),
                                                      (True, 2, True)])
-@pytest.mark.parametrize("L", [896, 1024, 2048, 4096])
+@pytest.mark.parametrize("L", [896, 1024, 1280, 2048, 4096])
 def test_sweep_kernel_b_long_spans_match_plain(cuda, L, auto, grid_offset, seeded):
-    """L above the register path's 768: the wide path, rings in shared
-    memory, uint16 tile."""
+    """L above the register path's 768 (1,280: neither a power of two nor
+    a register-path span): the wide path, per-end counts in shared
+    memory."""
     start, end, W, B, win, n_pad, packed, counts = _long_case(L, L)
     p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
     m = 9
@@ -266,7 +268,7 @@ def test_sweep_kernel_b_long_spans_match_plain(cuda, L, auto, grid_offset, seede
     assert ref[0].any()
 
 
-@pytest.mark.parametrize("L", [896, 1024, 2048, 4096])
+@pytest.mark.parametrize("L", [896, 1024, 1280, 2048, 4096])
 def test_select_kernel_long_spans_match_plain_and_argsort(cuda, L):
     """Kernel C's run-time-L instantiation (L above 768)."""
     start, end, W, B, win, n_pad, packed, counts = _long_case(L, L + 1)
@@ -280,6 +282,156 @@ def test_select_kernel_long_spans_match_plain_and_argsort(cuda, L):
     assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B, L))
     bits, n_sel = _selection_mask(p, sel, W, B, L, win)
     assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel > 0
+
+
+@pytest.mark.parametrize("auto,grid_offset,seeded", [(True, 0, False), (False, 1, True)])
+@pytest.mark.parametrize("L", [1280, 4096])
+def test_sweep_kernel_b_wide_path_amplicon_stacks_match_plain(cuda, L, auto, grid_offset,
+                                                               seeded):
+    """Amplicon stacks: about 300 reads starting at each of a few positions
+    (one of them where a block ends), spans spread up to L - 1, over a thin
+    uniform background; the wide path launched, bit-equal to the twin."""
+    rng = np.random.default_rng(L + 7)
+    W, B = 4, 128
+    win = max(4 * B, -(-L // B) * B)
+    n = W * win
+    start = rng.integers(0, n - L, n // 4)
+    end = start + rng.integers(0, L - 1, n // 4)
+    for s0 in (5, B - 1, win + 3 * B // 2, 2 * win + 17):
+        start = np.concatenate([start, np.full(300, s0)])
+        end = np.concatenate([end, s0 + rng.integers(L // 2, L - 1, 300)])
+    end = np.minimum(end, n - 1)
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, W, B, L,
+                                                         cap_multiple=64)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    m = 120
+    target = None if auto else torch.tensor(
+        _native.capped_target(start, end, n_pad, m).reshape(W, win), device=cuda)
+    g = np.random.default_rng(L)
+    carries = [torch.tensor(g.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                            else np.zeros((W, L), np.int32), device=cuda)
+               for _ in range(3)]
+    kw = dict(grid_offset=grid_offset, avail0i=carries[2], auto_target=auto,
+              max_coverage=m if auto else 0)
+    n0 = blocked.blocked_sweep_wide.launches
+    got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    assert blocked.blocked_sweep_wide.launches == n0 + 1
+    ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B, L,
+                                           **kw)
+    for g_, r in zip(got, ref):
+        assert torch.equal(g_, r)
+    assert ref[0].any()
+
+
+@pytest.mark.parametrize("L,B", [(64, 64), (256, 128), (768, 256)])
+def test_sweep_kernel_b_wide_path_matches_register_path(cuda, L, B):
+    """Called directly where the register path also runs: both bit-equal to
+    each other and to the twin, from seeded carries at grid offset 1."""
+    start, end, W, win, n_pad, packed, counts = _kernel_b_case(L, B, L + B + 1)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    rng = np.random.default_rng(B)
+    carries = [torch.tensor(rng.integers(0, 4, (W, L)).astype(np.int32), device=cuda)
+               for _ in range(3)]
+    kw = dict(grid_offset=1, avail0i=carries[2], auto_target=True, max_coverage=9)
+    got = blocked.blocked_sweep_wide(p, c, None, carries[0], carries[1], W, B, L, **kw)
+    reg = blocked.blocked_sweep_pass(p, c, None, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    ref = blocked.blocked_sweep_pass_plain(p, c, None, carries[0], carries[1], W, B, L, **kw)
+    for g, r, x in zip(got, reg, ref):
+        assert torch.equal(g, x) and torch.equal(r, x)
+
+
+@pytest.mark.parametrize("L", [1280, 3072])
+def test_wide_path_and_select_kernel_at_block_256_match_plain(cuda, L):
+    """B = 256 (midnight-30kb's block) at a run-time L: the wide path from
+    seeded carries at grid offset 1 and kernel C on the windowed sweep's
+    selection, each bit-equal to its twin."""
+    start, end, W, B, win, n_pad, packed, counts = _long_case(L, L + 3, B=256)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    rng = np.random.default_rng(L)
+    carries = [torch.tensor(rng.integers(0, 4, (W, L)).astype(np.int32), device=cuda)
+               for _ in range(3)]
+    kw = dict(grid_offset=1, avail0i=carries[2], auto_target=True, max_coverage=9)
+    got = blocked.blocked_sweep_pass(p, c, None, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    ref = blocked.blocked_sweep_pass_plain(p, c, None, carries[0], carries[1], W, B, L, **kw)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                            max_coverage=9)
+    xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=cuda)
+    got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B, L))
+    assert int(got.sum()) > 0
+
+
+def _deep_amplicons(seed):
+    """artic-deep-30kb's layout on 2,000 bases: 5 amplicons of 400 bases
+    at a stride of 300, 70,000 pairs each (more than 65,535 first mates
+    start at each primer), 100-150 bases; packed at its W, B, L."""
+    from genome_downsampler_tpu_torch.testing import long_reads
+
+    b = long_reads.amplicon_pairs(np.random.default_rng(seed), 2_000, 5, 30, 300, 400,
+                                  350_000, 100, 150)
+    start, end = np.asarray(b.start, np.int64), np.asarray(b.end, np.int64)
+    W, B, L = 4, 256, 256
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, 2_000, W, B, L,
+                                                         cap_multiple=256)
+    return b, start, end, W, B, L, win, n_pad, packed, counts
+
+
+@pytest.mark.parametrize("auto,grid_offset,seeded", [(True, 0, False), (False, 1, True)])
+def test_sweep_kernel_b_deep_amplicon_stacks_match_plain(cuda, auto, grid_offset, seeded):
+    """Stacks of 70,000 reads with 51 spans at each primer and of about
+    1,400 with one span where the second mates start: the wrapper sends
+    them to the wide path, whose stack fold (up to 16 neighbouring codes a
+    lane, one add a run) is bit-equal to the twin; kernel C too."""
+    _, start, end, W, B, L, win, n_pad, packed, counts = _deep_amplicons(5)
+    assert np.bincount(start).max() > 65535
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    m = 1000
+    target = None if auto else torch.tensor(
+        _native.capped_target(start, end, n_pad, m).reshape(W, win), device=cuda)
+    g = np.random.default_rng(grid_offset)
+    carries = [torch.tensor(g.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                            else np.zeros((W, L), np.int32), device=cuda)
+               for _ in range(3)]
+    kw = dict(grid_offset=grid_offset, avail0i=carries[2], auto_target=auto,
+              max_coverage=m if auto else 0)
+    n0 = (blocked.blocked_sweep_pass.launches, blocked.blocked_sweep_wide.launches)
+    got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    assert (blocked.blocked_sweep_pass.launches,
+            blocked.blocked_sweep_wide.launches) == (n0[0], n0[1] + 1)
+    ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B, L,
+                                           **kw)
+    for g_, r in zip(got, ref):
+        assert torch.equal(g_, r)
+    assert ref[0].any()
+    if auto:
+        sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                                max_coverage=m)
+        xwin = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=cuda)
+        got = blocked.blocked_selection_pass(p, c, sel, xwin, W, B, L)
+        torch.cuda.synchronize()
+        assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, xwin, W, B,
+                                                                     L))
+
+
+def test_blocked_solver_cuda_deep_amplicons_match_host_greedy(cuda):
+    """mcp-cuda-blocked on the deep amplicon pairs: the read set of
+    mcp-cpu, every pass on the wide path."""
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+
+    batch = _deep_amplicons(6)[0]
+    reg = default_registry()
+    n0 = (blocked.blocked_sweep_pass.launches, blocked.blocked_sweep_wide.launches)
+    sel = reg.get("mcp-cuda-blocked").solve(1000, batch)
+    assert blocked.blocked_sweep_pass.launches == n0[0]
+    assert blocked.blocked_sweep_wide.launches > n0[1]
+    np.testing.assert_array_equal(sel, reg.get("mcp-cpu").solve(1000, batch))
 
 
 @pytest.mark.parametrize("span", [1000, 4094])
