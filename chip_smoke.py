@@ -49,7 +49,10 @@ package. Phases, each of which raises on failure:
     default size (1M pairs, 2M reads, over 30,000 bases, n=30,208, L=256,
     M=1000): each equal to kernel A and to the port's ``sweep_counts`` over
     the whole row, and to its twin on the first 4,096 positions; kernel A,
-    C and B times side by side, and the twins';
+    C and B times side by side (all three on one frame: a sweep warp and
+    three producer warps), ns per position on the whole row and the
+    differences A - C and C - B, and the twins'; each instantiation's
+    registers and local (spill) bytes as the built kernels report them;
 12. the blocked sweep's ablation: all seven modes equal to their twin at
     W=4, B=128, L=64; ``full`` equal to kernel A over the 64 whole window
     rows at 1M reads over 2.5 Mb (S=64, 2.6 GB of rows); the seven modes
@@ -109,13 +112,14 @@ printing neither line, without a CUDA device or outside the repository.
 
     python3 chip_smoke.py --against OTHER.cu [--against OTHER2.cu ...]
 
-holds a main-path kernel against another version of its source (an earlier
+holds a kernel against another version of its source (an earlier
 commit's, written out with ``git show <commit>:genome_downsampler_tpu_torch/
-ops/csrc/dense_sweep.cu``): the kernel is the one whose C entry the other
+ops/csrc/dense_sweep.cu``): the kernel is the one whose C entries the other
 source defines (``gd_dense_sweep``: kernel A, ``gd_blocked_sweep``: kernel
 B, ``gd_blocked_sweep_wide``: kernel B's wide path, ``gd_blocked_select``:
 kernel C, ``gd_ssp_solve``: the SSP kernel, whose one-CTA version's entry
-is also taken). Each other source is built into its
+is also taken; ``gd_sweep_variant_c`` and ``gd_sweep_variant_b`` together:
+the variants, one kernel of two entries). Each other source is built into its
 own library under ``build/against/``, and the port's source of the same
 kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
 per instantiation are printed). Phases 1 and 2 run, then each version is
@@ -127,8 +131,10 @@ kernel B on the config-4 full pass and tail slice; the wide path on phase
 carries at grid offset 1), one full pass of each read set of phase 3c and
 the config-4 full pass; kernel C on the config-4 full pass; the SSP kernel on
 the 3,000-base cut, config-1 and the QMCP edge
-(once a turn there). It ends with the turns' JSON object instead of the
-three lines.
+(once a turn there); the variants, C and B each, on the kernel_variants
+default row (n=30,208, L=256), its first 4,096 positions and an L=64 row,
+where the port's are first held to kernel A. It ends with the turns' JSON
+object instead of the three lines.
 """
 
 from __future__ import annotations
@@ -408,12 +414,18 @@ def phase_sweep(dev, c4, report):
     }
 
 
+def against_entries(key):
+    """The C entries of the kernel ``key`` of ``AGAINST_KERNELS``."""
+    return AGAINST_ENTRIES.get(key, (key,))
+
+
 def against_entry(path):
-    """The C entry, one of ``AGAINST_KERNELS``, that the source at ``path``
-    defines."""
+    """The kernel, a key of ``AGAINST_KERNELS``, whose C entries the source
+    at ``path`` defines (all of them)."""
     text = Path(path).read_text()
-    found = [e for e in AGAINST_KERNELS
-             if re.search(rf'extern\s+"C"\s+int\s+{e}\s*\(', text)]
+    found = [k for k in AGAINST_KERNELS
+             if all(re.search(rf'extern\s+"C"\s+int\s+{e}\s*\(', text)
+                    for e in against_entries(k))]
     if len(found) != 1:
         raise ValueError(f"{path} defines {found or 'none'} of {list(AGAINST_KERNELS)}")
     return found[0]
@@ -448,7 +460,7 @@ def start_against_builds(paths):
 # registers
 PTXAS_ENTRY = re.compile(
     r"Compiling entry function '[^']*?(blocked_sweep_wide|blocked_sweep|dense_sweep|blocked_select"
-    r"|ssp)_kernel"
+    r"|sweep_variant|ssp)_kernel"
     r"(?:ILi(\d+)E(?:Lb(\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
     r"loads.*?Used (\d+) registers", re.S)
 
@@ -470,9 +482,10 @@ def finish_against_builds(procs):
             for k, a, b, st, ld, r in PTXAS_ENTRY.findall(txt)))
         if not label.startswith("port "):
             lib = ctypes.CDLL(str(cmd[cmd.index("-o") + 1]))
-            fn = getattr(lib, entry)
-            fn.restype = ctypes.c_int
-            fn.argtypes = against_signature(label, entry)
+            for e in against_entries(entry):
+                fn = getattr(lib, e)
+                fn.restype = ctypes.c_int
+                fn.argtypes = against_signature(label, e)
             libs[label] = (entry, lib)
     return libs
 
@@ -694,6 +707,45 @@ def turns_blocked_sweep_wide(dev, c4):
     return checks, timed
 
 
+def turns_sweep_variants(dev, c4):
+    """The variants' cells, C and B each: the kernel_variants default row
+    (n=30,208, L=256, M=1000), its first DEEP_CHECK positions and an L=64
+    row (64 bp reads, otherwise the default); on each the port's C and B
+    are first held to kernel A."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import build, sweep, variants
+    from genome_downsampler_tpu_torch.scripts import kernel_variants
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib, entry, x, t):
+        n, L = x.shape
+        out = torch.empty(n, dtype=torch.int32, device=dev)
+        build.check(entry, getattr(lib, entry)(x.data_ptr(), t.data_ptr(), out.data_ptr(),
+                                               n, L, stream))
+        return [out]
+
+    rows, target = kernel_variants.problem(dev)
+    cells = {"row": (rows, target),
+             "head": (rows[:DEEP_CHECK].contiguous(), target[:DEEP_CHECK].contiguous()),
+             "L=64": kernel_variants.problem(dev, read_len=64, max_span=64)}
+    port = build.load_kernels()
+    checks, timed = [], {}
+    for cell, (x, t) in cells.items():
+        n, L = x.shape
+        z = torch.zeros((1, L), dtype=torch.int32, device=dev)
+        ref = sweep.dense_sweep_counts(x[None], t[None], z, z, L)[0][0]
+        for key, entry, xin in (("C", "gd_sweep_variant_c", x),
+                                ("B", "gd_sweep_variant_b", variants.rotate_rows(x))):
+            max_abs_err(run(port, entry, xin, t), [ref])
+            go = lambda lib, e=entry, a=xin, b=t: run(lib, e, a, b)  # noqa: E731
+            checks.append(go)
+            timed[f"{key} {cell}"] = (go, n)
+    log(f"  the port's variants == kernel A on {len(cells)} cells")
+    return checks, timed
+
+
 # the kernels --against takes, by the C entry the other source defines: the
 # port's source of the kernel and the function that makes its cells
 AGAINST_KERNELS = {"gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
@@ -701,7 +753,10 @@ AGAINST_KERNELS = {"gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
                    "gd_blocked_sweep_wide": ("blocked_sweep_wide.cu",
                                              turns_blocked_sweep_wide),
                    "gd_blocked_select": ("blocked_select.cu", turns_blocked_select),
+                   "gd_sweep_variant": ("sweep_variants.cu", turns_sweep_variants),
                    "gd_ssp_solve": ("ssp.cu", turns_ssp)}
+# a kernel whose source defines more than one C entry: all of them
+AGAINST_ENTRIES = {"gd_sweep_variant": ("gd_sweep_variant_c", "gd_sweep_variant_b")}
 
 
 def against_signature(path, entry):
@@ -1235,10 +1290,16 @@ def phase_variants(dev, report):
                              "kernel_variants default")
     a = res["A"]["out"]
     n, L = rows.shape
+    # each instantiation's resources, as the built kernels report them
+    info = {key: {f: {ell: variants.kernel_info(ell, key == "B")[f]
+                      for ell in variants._CUDA_SPANS}
+                  for f in ("registers", "local_bytes", "chunk_positions")}
+            for key in "CB"}
     head_r, head_t = rows[:DEEP_CHECK].contiguous(), target[:DEEP_CHECK].contiguous()
     z = torch.zeros((1, L), dtype=torch.int32, device=dev)
     a_head_ms = best_ms(lambda: sweep.dense_sweep_counts(head_r[None], head_t[None],
                                                          z, z, L), dev)[1]
+    split = kernel_variants.ns_split(res, n)
     entries = []
     for key, name, fn, plain, x in (
         ("C", "variant_c", variants.sweep_variant_c, variants.sweep_variant_c_plain,
@@ -1266,11 +1327,18 @@ def phase_variants(dev, report):
             "timed_on": f"first {DEEP_CHECK} positions of the kernel_variants "
                         f"default (L={L})",
             "row_ms": res[key]["ms"], "kernel_a_row_ms": res["A"]["ms"],
+            "ns_per_position": split[key], "kernel_a_ns_per_position": split["A"],
+            "a_minus_c_ns_per_position": split["A-C"],
+            "c_minus_b_ns_per_position": split["C-B"],
+            **info[key],
         })
     log(f"  whole row, n={n} (least of 5): kernel A {res['A']['ms']:.3f} ms "
-        f"({1e6 * res['A']['ms'] / n:.1f} ns/position), variant C "
-        f"{res['C']['ms']:.3f} ms ({1e6 * res['C']['ms'] / n:.1f}), variant B "
-        f"{res['B']['ms']:.3f} ms ({1e6 * res['B']['ms'] / n:.1f})  [{report}]")
+        f"({split['A']:.2f} ns/position), variant C {res['C']['ms']:.3f} ms "
+        f"({split['C']:.2f}), variant B {res['B']['ms']:.3f} ms ({split['B']:.2f}); "
+        f"A - C {split['A-C']:.2f} ns/position, C - B {split['C-B']:.2f}  [{report}]")
+    for key, ent in zip("CB", entries):
+        log(f"  variant {key} per L: registers {ent['registers']}, local (spill) bytes "
+            f"{ent['local_bytes']}, positions a chunk {ent['chunk_positions']}")
     log(f"  first {DEEP_CHECK} positions: kernel A {a_head_ms:.3f} ms, variant C "
         f"{entries[0]['ms']:.3f} ms (twin {entries[0]['plain_ms']:.3f} ms), "
         f"variant B {entries[1]['ms']:.3f} ms (twin {entries[1]['plain_ms']:.3f} ms)"
@@ -1826,8 +1894,8 @@ def phase_long_reads(dev, report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
-                    help="time kernel A, B, B's wide path, C or the SSP kernel (by "
-                         "the C entry OTHER.cu defines) "
+                    help="time kernel A, B, B's wide path, C, the SSP kernel or the "
+                         "variants (by the C entries OTHER.cu defines) "
                          "against another version of its source, in turns "
                          "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)

@@ -47,6 +47,8 @@ _SIGNATURES = {
     # (rows, target, out, n, L, stream)
     "gd_sweep_variant_c": [_P] * 3 + [_I] * 2 + [_P],
     "gd_sweep_variant_b": [_P] * 3 + [_I] * 2 + [_P],
+    # (L, ring, info[4])
+    "gd_sweep_variant_info": [_I, _I, _P],
     # (packed, target, out, availf, selendf, nbw, W, cap, B, L, mode, stream)
     "gd_blocked_ablate": [_P] * 5 + [_I] * 6 + [_P],
     # (bstart, bend1, off0, cap, pool, run_lo, run_hi, excess0, orderF,

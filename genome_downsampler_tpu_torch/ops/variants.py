@@ -16,10 +16,15 @@ Rows are raw arrival histograms ``rows[j, k]`` = # reads starting at ``j``
 with span ``k + 1`` (``build_start_rows``), one row ``(n, L)`` as in the
 JAX script. Each wrapper runs its plain twin on CPU tensors and its CUDA
 kernel (``csrc/sweep_variants.cu``) on CUDA tensors, or raises;
-``launches`` on each counts its kernel launches.
+``launches`` on each counts its kernel launches (an empty row launches
+nothing). The kernels run on kernel A's frame: one CTA of a sweep warp and
+three producer warps per row, chunks of ``chunk_positions(L)`` positions
+in a double buffer of ``shared_bytes(L)`` bytes of shared memory.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -29,6 +34,35 @@ from genome_downsampler_tpu_torch.ops.sweep import dense_sweep_counts_plain
 
 # ring widths the CUDA variants take
 _CUDA_SPANS = (32, 64, 128, 256)
+
+
+def chunk_positions(L: int) -> int:
+    """Positions per chunk of the CUDA variants at ring width ``L`` (the
+    kernel's ``chunk_positions``): the largest power of two up to 512 for
+    which two int32 ``(P, L)`` buffers fit 192 KB."""
+    p = 512
+    while 2 * p * L * 4 > 192 * 1024:
+        p //= 2
+    return p
+
+
+def shared_bytes(L: int) -> int:
+    """Dynamic shared memory of one CTA at ring width ``L``: the two row
+    buffers, and two chunks each of targets and emitted counts."""
+    p = chunk_positions(L)
+    return 4 * (2 * p * L + 4 * p)
+
+
+def kernel_info(L: int, ring: bool) -> dict:
+    """What the built kernel of variant B (``ring``) or C at ``L`` reports:
+    ``{"chunk_positions", "shared_bytes", "registers", "local_bytes"}``
+    (``local_bytes`` > 0 means spills). Needs the CUDA library."""
+    info = (ctypes.c_int64 * 4)()
+    lib = build.load_kernels()
+    build.check("gd_sweep_variant_info",
+                lib.gd_sweep_variant_info(L, int(ring), ctypes.addressof(info)))
+    return dict(zip(("chunk_positions", "shared_bytes", "registers", "local_bytes"),
+                    info))
 
 
 def rotate_rows(rows: torch.Tensor) -> torch.Tensor:
@@ -95,6 +129,8 @@ def _launch(entry, rows, target, max_span, fn):
         raise ValueError("rows must be 16-byte aligned (the kernel copies "
                          "16-byte pieces)")
     out = torch.empty(n, dtype=torch.int32, device=rows.device)
+    if n == 0:
+        return out
     lib = build.load_kernels()
     with torch.cuda.device(rows.device):
         rc = getattr(lib, entry)(

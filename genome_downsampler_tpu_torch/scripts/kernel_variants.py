@@ -9,7 +9,12 @@ M = 1000. Rows and target are built on the card; the reference is the
 port's ``sweep_counts``. Times kernel A (``dense_sweep_counts``, one row),
 then variant C, then variant B (rows rotated beforehand, outside the
 timed launches), each the least of 5 launches after one warm launch, and
-prints ``match=`` for each against the reference.
+prints ``match=`` for each against the reference; then each kernel's ns
+per position and the two differences A - C (what keeping the prefix scan
+of the ring on the step's chain costs C, negative when C is slower) and
+C - B (the shift of C's ring against B's fixed ring, whose owner lane of
+the expiring slot moves). All three run on one frame (one CTA of a sweep
+warp and three producer warps), so the differences are the steps'.
 """
 
 from __future__ import annotations
@@ -78,10 +83,20 @@ def run(device, *, reps=5, log=print, **size):
     return results, rows, target
 
 
+def ns_split(results, n):
+    """``{"A", "C", "B"}`` ns per position over ``n`` positions from
+    ``run``'s results, and the differences ``"A-C"`` and ``"C-B"``."""
+    ns = {k: 1e6 * results[k]["ms"] / n for k in ("A", "C", "B")}
+    return {**ns, "A-C": ns["A"] - ns["C"], "C-B": ns["C"] - ns["B"]}
+
+
 def main():
     dev = require_cuda()
     print(gpu_report(), flush=True)
-    results, _, _ = run(dev, log=lambda *a: print(*a, flush=True))
+    results, rows, _ = run(dev, log=lambda *a: print(*a, flush=True))
+    split = ns_split(results, rows.shape[0])
+    print(f"ns/position: A {split['A']:.2f}, C {split['C']:.2f}, B {split['B']:.2f}; "
+          f"A - C {split['A-C']:.2f}, C - B {split['C-B']:.2f}", flush=True)
     if not all(r["match"] for r in results.values()):
         raise SystemExit("a kernel differs from the reference")
 

@@ -25,6 +25,7 @@ from genome_downsampler_tpu_torch.solvers.native_greedy import (
     native_greedy_select,
 )
 from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
+from genome_downsampler_tpu_torch.testing import variant_cases
 from genome_downsampler_tpu_torch.testing.ssp_cases import (
     BOUNDARY_CASES,
     boundary_case,
@@ -791,11 +792,21 @@ def test_dense_solvers_cuda_match_host_greedy(cuda):
     assert sweep.dense_sweep_counts.launches > n0
 
 
-@pytest.mark.parametrize("L", [64, 256])
-def test_sweep_variants_match_plain_and_kernel_a(cuda, L):
-    rows, target = _dense_case(1, 4096, L, 6, seed=L)
-    r = torch.tensor(rows[0], device=cuda)
-    t = torch.tensor(target[0], device=cuda)
+@pytest.mark.parametrize("L", [32, 64, 128, 256])
+@pytest.mark.parametrize("edge", ["1", "P-1", "P", "P+1", "2P+1", "ragged", "deep stack"])
+def test_sweep_variants_match_plain_and_kernel_a(cuda, L, edge):
+    # rows at the edges of the kernels' chunks (and of variant B's groups of
+    # L / 32 positions), the rows the CPU tests hold the twins to the JAX
+    # package's Pallas variants on; the deep stack is 3,000 reads starting
+    # at one position, M = 1000
+    lengths = variant_cases.edge_lengths(L)
+    if edge == "deep stack":
+        n, m, stack = lengths["ragged"] + L, 1000, 3000
+    else:
+        n, m, stack = lengths[edge], L // 4, 0
+    rows, target = variant_cases.variant_case(n, L, m, seed=L + n, stack=stack)
+    r = torch.tensor(rows, device=cuda)
+    t = torch.tensor(target, device=cuda)
     z = torch.zeros((1, L), dtype=torch.int32, device=cuda)
     ref = sweep.dense_sweep_counts(r[None], t[None], z, z, L)[0][0]
     rot = variants.rotate_rows(r)
@@ -805,9 +816,31 @@ def test_sweep_variants_match_plain_and_kernel_a(cuda, L):
     torch.cuda.synchronize()
     assert (variants.sweep_variant_c.launches, variants.sweep_variant_b.launches) == (
         n0[0] + 1, n0[1] + 1)
-    assert torch.equal(got_c, ref) and torch.equal(got_b, ref) and ref.any()
+    assert torch.equal(got_c, ref) and torch.equal(got_b, ref)
     assert torch.equal(got_c, variants.sweep_variant_c_plain(r, t, L))
     assert torch.equal(got_b, variants.sweep_variant_b_plain(rot, t, L))
+    if n > 1:
+        assert ref.any()
+
+
+@pytest.mark.parametrize("L", [32, 256])
+def test_sweep_variants_empty_row_launches_nothing(cuda, L):
+    r = torch.zeros((0, L), dtype=torch.int32, device=cuda)
+    t = torch.zeros(0, dtype=torch.int32, device=cuda)
+    n0 = (variants.sweep_variant_c.launches, variants.sweep_variant_b.launches)
+    for fn in (variants.sweep_variant_c, variants.sweep_variant_b):
+        out = fn(r, t, L)
+        assert out.shape == (0,) and out.device.type == "cuda"
+    assert (variants.sweep_variant_c.launches, variants.sweep_variant_b.launches) == n0
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("L", [32, 64, 128, 256])
+def test_sweep_variants_geometry_and_no_spill(cuda, L, ring):
+    info = variants.kernel_info(L, ring)
+    assert info["chunk_positions"] == variants.chunk_positions(L)
+    assert info["shared_bytes"] == variants.shared_bytes(L)
+    assert info["local_bytes"] == 0 and 0 < info["registers"] <= 255
 
 
 @pytest.mark.parametrize("mode", ablate.MODES)

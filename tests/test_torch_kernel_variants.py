@@ -21,6 +21,7 @@ from genome_downsampler_tpu.ops.coverage import coverage_from_intervals as jax_c
 from genome_downsampler_tpu.solvers import device_sweep as jax_ds
 from genome_downsampler_tpu_torch.ops import variants
 from genome_downsampler_tpu_torch.scripts import kernel_variants
+from genome_downsampler_tpu_torch.testing import variant_cases
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -157,3 +158,111 @@ def test_variants_reject_bad_arguments(fn):
         fn(meta, t.to("meta"), 48)
     with pytest.raises(ValueError, match="no sweep variant"):
         fn(rows.to("meta"), t.to("meta"), 64)
+
+
+@pytest.mark.parametrize("L", [32, 64, 128, 256])
+def test_chunk_geometry_fits_the_card(L):
+    # the kernels' chunks: a power of two, whole groups of L / 32 positions
+    # for variant B, two row buffers within 192 KB, all within the 227 KB a
+    # block may use
+    p = variants.chunk_positions(L)
+    assert p == {32: 512, 64: 256, 128: 128, 256: 64}[L]
+    assert p % (L // 32) == 0 and 2 * p * L * 4 <= 192 * 1024
+    assert variants.shared_bytes(L) == 4 * (2 * p * L + 4 * p) <= 232_448
+
+
+@pytest.mark.parametrize("L", [32, 64, 128, 256])
+@pytest.mark.parametrize("edge", ["1", "P-1", "P", "P+1", "2P+1", "ragged", "deep stack"])
+def test_twins_match_pallas_variants_at_chunk_edges(interpret, L, edge):
+    # the rows the card tests give the kernels; the Pallas variants sweep
+    # each row as one block
+    lengths = variant_cases.edge_lengths(L)
+    if edge == "deep stack":
+        n, m, stack = lengths["ragged"] + L, 1000, 3000
+    else:
+        n, m, stack = lengths[edge], L // 4, 0
+    rows, target = variant_cases.variant_case(n, L, m, seed=L + n, stack=stack)
+    pal_c, _ = KV.run_variant(KV.make_variant_c, jnp.asarray(rows),
+                              jnp.asarray(target), L, n)
+    pal_b, _ = KV.run_variant(KV.make_variant_b, jnp.asarray(rows),
+                              jnp.asarray(target), L, n, rotated=True)
+    rot = variants.rotate_rows(_t(rows))
+    np.testing.assert_array_equal(
+        variants.sweep_variant_c(_t(rows), _t(target), L).numpy(), pal_c)
+    np.testing.assert_array_equal(variants.sweep_variant_b(rot, _t(target), L).numpy(),
+                                  pal_b)
+    if stack:
+        assert rows[min(3, n - 1)].sum() > stack and target.max() == m
+        assert pal_c.sum() >= m
+
+
+def test_empty_row_gives_empty_results():
+    rows = torch.zeros((0, 64), dtype=torch.int32)
+    t = torch.zeros(0, dtype=torch.int32)
+    for fn in (variants.sweep_variant_c, variants.sweep_variant_b):
+        assert fn(rows, t, 64).shape == (0,)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("_chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the C entries of the variants' first CUDA source, as it declared them
+FIRST_VARIANTS_SOURCE = '''
+extern "C" int gd_sweep_variant_c(const void* rows, const void* target,
+                                  void* out, int64_t n, int64_t L,
+                                  void* stream) {
+  return launch<false>(rows, target, out, n, L, stream);
+}
+
+extern "C" int gd_sweep_variant_b(const void* rows_rot, const void* target,
+                                  void* out, int64_t n, int64_t L,
+                                  void* stream) {
+  return launch<true>(rows_rot, target, out, n, L, stream);
+}
+'''
+
+
+@pytest.mark.parametrize(
+    "source,key",
+    [("sweep_variants.cu", "gd_sweep_variant"), ("dense_sweep.cu", "gd_dense_sweep"),
+     ("blocked_sweep.cu", "gd_blocked_sweep"),
+     ("blocked_sweep_wide.cu", "gd_blocked_sweep_wide"),
+     ("blocked_select.cu", "gd_blocked_select"), ("ssp.cu", "gd_ssp_solve"),
+     ("first variants source", "gd_sweep_variant")],
+)
+def test_against_takes_the_variants_as_one_kernel(tmp_path, source, key):
+    cs = _chip_smoke()
+    csrc = ROOT / "genome_downsampler_tpu_torch" / "ops" / "csrc"
+    path = tmp_path / "other.cu"
+    path.write_text(FIRST_VARIANTS_SOURCE if source == "first variants source"
+                    else (csrc / source).read_text())
+    assert cs.against_entry(path) == key
+    assert cs.AGAINST_KERNELS[key][0] in (source, "sweep_variants.cu")
+    # the variants' key binds both C entries, each with its own signature
+    entries = cs.against_entries(key)
+    assert entries == (("gd_sweep_variant_c", "gd_sweep_variant_b")
+                       if key == "gd_sweep_variant" else (key,))
+
+
+def test_against_refuses_half_of_the_variants(tmp_path):
+    cs = _chip_smoke()
+    path = tmp_path / "other.cu"
+    path.write_text(FIRST_VARIANTS_SOURCE.split("extern", 2)[0]
+                    + "extern" + FIRST_VARIANTS_SOURCE.split("extern", 2)[1])
+    with pytest.raises(ValueError, match="defines none"):
+        cs.against_entry(path)
+
+
+def test_ptxas_lines_name_the_variants():
+    cs = _chip_smoke()
+    txt = ("ptxas info    : Compiling entry function "
+           "'_ZN12_GLOBAL__N_120sweep_variant_kernelILi8ELb1EEEvPKiS2_Pil' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _ZN12_GLOBAL__N_120sweep_variant_"
+           "kernelILi8ELb1EEEvPKiS2_Pil\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 90 registers, 380 bytes cmem[0]\n")
+    assert cs.PTXAS_ENTRY.findall(txt) == [("sweep_variant", "8", "1", "0", "0", "90")]
