@@ -57,8 +57,12 @@ package. Phases, each of which raises on failure:
     W=4, B=128, L=64; ``full`` equal to kernel A over the 64 whole window
     rows at 1M reads over 2.5 Mb (S=64, 2.6 GB of rows); the seven modes
     timed through ``scripts.bench_kernel_ablate``'s ``run`` at its default
-    (6M reads, W=64, B=128, L=256), beside kernel B's time per position,
-    and each equal to its twin on the first blocks of that default;
+    (6M reads, W=64, B=128, L=256), ``full`` there equal to kernel B on the
+    same codes (targets given, zero carries) and timed beside it in turns,
+    the step's pieces in ns per step (take, shift, emit, fold, handover:
+    differences of the modes), each mode equal to its twin on the first
+    blocks of that default, each instantiation's registers and spills (the
+    ablation runs on kernel B's frame, so its modes price kernel B's step);
 13. the SSP kernel (``qmcp-cuda``'s whole solve, one cooperative launch
     of up to one CTA per SM) == its twin in flows, supply, status, phases
     and rounds on the six seeded inputs of the JAX suite's random LP cases
@@ -119,7 +123,9 @@ source defines (``gd_dense_sweep``: kernel A, ``gd_blocked_sweep``: kernel
 B, ``gd_blocked_sweep_wide``: kernel B's wide path, ``gd_blocked_select``:
 kernel C, ``gd_ssp_solve``: the SSP kernel, whose one-CTA version's entry
 is also taken; ``gd_sweep_variant_c`` and ``gd_sweep_variant_b`` together:
-the variants, one kernel of two entries). Each other source is built into its
+the variants, one kernel of two entries; ``gd_blocked_ablate``: the
+ablation; the wide path's earlier entry, with an extra ``wide_tile``, is
+also taken). Each other source is built into its
 own library under ``build/against/``, and the port's source of the same
 kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
 per instantiation are printed). Phases 1 and 2 run, then each version is
@@ -133,7 +139,9 @@ the config-4 full pass; kernel C on the config-4 full pass; the SSP kernel on
 the 3,000-base cut, config-1 and the QMCP edge
 (once a turn there); the variants, C and B each, on the kernel_variants
 default row (n=30,208, L=256), its first 4,096 positions and an L=64 row,
-where the port's are first held to kernel A. It ends with the turns' JSON
+where the port's are first held to kernel A; the ablation, all seven modes,
+on the bench_kernel_ablate default (checked on its first 4 blocks and on
+phase 12's W=4, L=64 case). It ends with the turns' JSON
 object instead of the three lines.
 """
 
@@ -141,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import re
 import subprocess
@@ -204,6 +213,9 @@ QMCP_64K = (54_791, 65_536, 100)
 QMCP_EDGE = (109_583, 131_072, 100)
 QMCP_HOST = (219_166, 262_144, 100)
 PROFILE_DIR = ROOT / "build" / "profile"
+# gd_blocked_sweep_wide as its earlier sources declared it:
+# gd_blocked_sweep's arguments, then wide_tile
+WIDE_TILE_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
 
 
 def log(*a):
@@ -456,12 +468,12 @@ def start_against_builds(paths):
 
 
 # one instantiation in ptxas -v's output: the kernel, its template arguments
-# (slots per lane and the target or takes mode; L for kernel C), spills and
-# registers
+# (slots per lane and the target or takes mode, or the ablation's mode; L
+# for kernel C), spills and registers
 PTXAS_ENTRY = re.compile(
     r"Compiling entry function '[^']*?(blocked_sweep_wide|blocked_sweep|dense_sweep|blocked_select"
-    r"|sweep_variant|ssp)_kernel"
-    r"(?:ILi(\d+)E(?:Lb(\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
+    r"|sweep_variant|blocked_ablate|ssp)_kernel"
+    r"(?:ILi(\d+)E(?:L[bi](\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
     r"loads.*?Used (\d+) registers", re.S)
 
 
@@ -659,9 +671,10 @@ def turns_blocked_sweep_wide(dev, c4):
     codes (midnight-30kb: W=8, B=256, L=1,280; long-5mb: W=64, B=128,
     L=3,072; artic-deep-30kb: W=8, B=256, L=256) and the config-4 full pass
     (L=256), auto targets from zero carries; phase 3b's and artic-deep-30kb
-    also checked from seeded carries at grid offset 1. ``wide_tile`` is 1
-    only where more than 65,535 reads of a group start at one position: the
-    int32 tile an earlier source needs there (the port's ignores it)."""
+    also checked from seeded carries at grid offset 1. An other source whose
+    entry takes the earlier extra ``wide_tile`` gets 1 only where more
+    than 65,535 reads of a group start at one position: the int32 tile the
+    first wide source needs there (the later ones ignore it)."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import blocked, build
@@ -693,10 +706,11 @@ def turns_blocked_sweep_wide(dev, c4):
         carries = carry[cell, seeded]
         out = [torch.empty((W, (nbw - off) * B), dtype=torch.int32, device=dev)]
         out += [torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)]
-        build.check("gd_blocked_sweep_wide", lib.gd_blocked_sweep_wide(
+        fn = lib.gd_blocked_sweep_wide
+        tile = [deep[cell]] if len(fn.argtypes) == len(WIDE_TILE_SIGNATURE) else []
+        build.check("gd_blocked_sweep_wide", fn(
             c.data_ptr(), p.data_ptr(), None, *(x.data_ptr() for x in carries),
-            *(o.data_ptr() for o in out), nbw, W, cap, B, L, off, 1, m, deep[cell],
-            stream))
+            *(o.data_ptr() for o in out), nbw, W, cap, B, L, off, 1, m, *tile, stream))
         return out
 
     checks = [lambda lib, k=cell: run(lib, k, 0, False) for cell in cells]
@@ -746,9 +760,55 @@ def turns_sweep_variants(dev, c4):
     return checks, timed
 
 
+def ablate_small_case(dev):
+    """Phase 12's small ablation case (the CPU tests' geometry, W=4, B=128,
+    L=64, about 3 reads starting per position): ``(packed, target)``."""
+    import numpy as np
+
+    from genome_downsampler_tpu_torch.scripts import bench_kernel_ablate as bka
+
+    rng = np.random.default_rng(SEED)
+    start = np.sort(rng.integers(0, 1000 - 64, 3000))
+    end = start + rng.integers(0, 63, 3000)
+    return bka.pack(start, end, 1000, 4, 128, 64, 5, dev)[::2]
+
+
+def turns_blocked_ablate(dev, c4):
+    """The ablation's cells: every mode on the bench_kernel_ablate default
+    (6M reads, W=64, B=128, L=256), checked there on its first TAIL_BLOCKS
+    blocks and on phase 12's small case (W=4, B=128, L=64)."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import ablate, build
+    from genome_downsampler_tpu_torch.scripts import bench_kernel_ablate as bka
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib, p, t, W, B, L, mode):
+        out = torch.zeros((W, t.shape[1]), dtype=torch.int32, device=dev)
+        carries = [torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(2)]
+        build.check("gd_blocked_ablate", lib.gd_blocked_ablate(
+            p.data_ptr(), t.data_ptr(), out.data_ptr(), *(c.data_ptr() for c in carries),
+            p.shape[0], W, p.shape[2], B, L, ablate.MODES.index(mode), stream))
+        return [out, *carries]
+
+    W, B, L = 64, 128, bka.MAX_SPAN
+    start, end, n = bka.problem(6.0)
+    p, _, t, win = bka.pack(start, end, n, W, B, L, bka.MAX_COVERAGE, dev)
+    head = (p[:TAIL_BLOCKS].contiguous(), t[:, :TAIL_BLOCKS * B].contiguous())
+    small = ablate_small_case(dev)
+    checks = [lambda lib, m=mode, c=case, w=w, ell=ell: run(lib, *c, w, B, ell, m)
+              for mode in ablate.MODES
+              for case, w, ell in ((small, 4, 64), (head, W, L))]
+    timed = {mode: (lambda lib, m=mode: run(lib, p, t, W, B, L, m), win)
+             for mode in ablate.MODES}
+    return checks, timed
+
+
 # the kernels --against takes, by the C entry the other source defines: the
 # port's source of the kernel and the function that makes its cells
-AGAINST_KERNELS = {"gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
+AGAINST_KERNELS = {"gd_blocked_ablate": ("blocked_ablate.cu", turns_blocked_ablate),
+                   "gd_dense_sweep": ("dense_sweep.cu", turns_dense_sweep),
                    "gd_blocked_sweep": ("blocked_sweep.cu", turns_blocked_sweep),
                    "gd_blocked_sweep_wide": ("blocked_sweep_wide.cu",
                                              turns_blocked_sweep_wide),
@@ -762,11 +822,12 @@ AGAINST_ENTRIES = {"gd_sweep_variant": ("gd_sweep_variant_c", "gd_sweep_variant_
 def against_signature(path, entry):
     """The ctypes argument types of ``entry`` as the source at ``path``
     declares it: the port's, or an earlier version's of the same count
-    (the one-CTA SSP kernel's)."""
+    (the one-CTA SSP kernel's; the wide path's with ``wide_tile``)."""
     from genome_downsampler_tpu_torch.ops import build
     from genome_downsampler_tpu_torch.scripts.ssp_round_split import ONE_CTA_SIGNATURE
 
-    earlier = {"gd_ssp_solve": [ONE_CTA_SIGNATURE]}
+    earlier = {"gd_ssp_solve": [ONE_CTA_SIGNATURE],
+               "gd_blocked_sweep_wide": [WIDE_TILE_SIGNATURE]}
 
     decl = re.search(rf'extern\s+"C"\s+int\s+{entry}\s*\(([^)]*)\)', Path(path).read_text())
     nargs = decl.group(1).count(",") + 1
@@ -1372,9 +1433,10 @@ def phase_ablate(dev, report, b_ns):
     """The ablation: every mode against its twin at W=4, B=128, L=64;
     ``full`` against kernel A over whole window rows at 1M reads; the seven
     modes timed through the bench_kernel_ablate entry point at its default,
-    and each against its twin on the first TAIL_BLOCKS blocks of it.
-    Returns the kernel's JSON entry."""
-    import numpy as np
+    ``full`` there equal to kernel B on the same codes and timed beside it,
+    the step's pieces; each mode against its twin on the first TAIL_BLOCKS
+    blocks of it; each instantiation's registers and spills. Returns the
+    kernel's JSON entry."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import ablate, sweep
@@ -1382,16 +1444,12 @@ def phase_ablate(dev, report, b_ns):
     from genome_downsampler_tpu_torch.scripts import bench_kernel_ablate as bka
 
     W, B, L = 64, 128, bka.MAX_SPAN
-    # the CPU tests' geometry: about 3 reads starting per position
-    rng = np.random.default_rng(SEED)
-    start = np.sort(rng.integers(0, 1000 - 64, 3000))
-    end = start + rng.integers(0, 63, 3000)
-    p, t, _ = bka.pack(start, end, 1000, 4, B, 64, 5, dev)
+    p, t = ablate_small_case(dev)
     errs = [ablate_vs_plain(p, t, 4, B, 64)[0]]
 
     # full over whole windows at 1M reads against kernel A over their rows
     start, end, n = bka.problem(1.0)
-    p, t, win = bka.pack(start, end, n, W, B, L, bka.MAX_COVERAGE, dev)
+    p, _, t, win = bka.pack(start, end, n, W, B, L, bka.MAX_COVERAGE, dev)
     out = ablate.blocked_ablate(p, t, W, B, L, "full")[0]
     rows = bka.window_rows(start, end, win, W, win, L, dev)
     z = torch.zeros((W, L), dtype=torch.int32, device=dev)
@@ -1405,18 +1463,36 @@ def phase_ablate(dev, report, b_ns):
     torch.cuda.synchronize()
     res = bka.run(dev, log=lambda *a: log("  " + " ".join(map(str, a))))
     launches = read_launches()
-    expect_launches(launches, "ablate", "dense_sweep")
+    expect_launches(launches, "ablate", "dense_sweep", "blocked_sweep")
     r = res[(W, B)]
     errs.append(max_abs_err([r["full"]["out"][:, :r["kernel_a"].shape[1]]],
                             [r["kernel_a"]]))
+    if not r["match_b"]:
+        raise AssertionError("full differs from kernel B on the default's codes")
+    pieces = r["pieces_ns"]
+    kb_ns = r["kernel_b"]["ns_per_step"]
     log(f"  modes at 6M reads, W={W} B={B} (ns per step, one position of {W} "
         f"windows): " + ", ".join(f"{m} {r[m]['ns_per_step']:.1f}" for m in ablate.MODES)
-        + f"; kernel B full config-4 pass {b_ns:.1f} ns/position (W=32)  [{report}]")
+        + f"; kernel B on the same codes {kb_ns:.1f} (turns full "
+        f"{r['turns']['full']}, B {r['turns']['kernel_b']} ms); kernel B full config-4 "
+        f"pass {b_ns:.1f} ns/position (W=32)  [{report}]")
+    log("  pieces (ns per step): " + ", ".join(f"{k} {v:.1f}" for k, v in pieces.items())
+        + f"  [{report}]")
+    # each instantiation's resources, as the built kernels report them
+    built = {(m, ell): ablate.kernel_info(B, ell, m)
+             for m in ablate.MODES for ell in ablate._CUDA_SPANS}
+    info = {f: {m: {ell: built[m, ell][f] for ell in ablate._CUDA_SPANS}
+                for m in ablate.MODES}
+            for f in ("registers", "local_bytes")}
+    log(f"  registers per mode and L: {info['registers']}; local (spill) bytes "
+        f"{info['local_bytes']}")
 
     # every mode, kernel and twin, on the first TAIL_BLOCKS blocks of it
     p = r["packed"][:TAIL_BLOCKS].contiguous()
     t = r["target"][:, :TAIL_BLOCKS * B].contiguous()
     modes_ms = {m: r[m]["ms"] for m in ablate.MODES}
+    modes_ns = {m: r[m]["ns_per_step"] for m in ablate.MODES}
+    turns = r["turns"]
     del res, r
     err, plain_ms = ablate_vs_plain(p, t, W, B, L)
     errs.append(err)
@@ -1433,7 +1509,8 @@ def phase_ablate(dev, report, b_ns):
             int((p >= 0).sum()), W, TAIL_BLOCKS * B, L, 4 * t.numel()))),
         "timed_on": f"mode full, first {TAIL_BLOCKS} blocks of the default "
                     f"(6M reads, W={W}, B={B}, L={L})",
-        "modes_ms": modes_ms,
+        "modes_ms": modes_ms, "modes_ns_per_step": modes_ns, "pieces_ns": pieces,
+        "kernel_b_ns_per_step": kb_ns, "turns_ms": turns, **info,
     }
 
 
@@ -1894,8 +1971,8 @@ def phase_long_reads(dev, report):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
-                    help="time kernel A, B, B's wide path, C, the SSP kernel or the "
-                         "variants (by the C entries OTHER.cu defines) "
+                    help="time kernel A, B, B's wide path, C, the SSP kernel, the "
+                         "variants or the ablation (by the C entries OTHER.cu defines) "
                          "against another version of its source, in turns "
                          "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)

@@ -23,15 +23,27 @@ is re-synced to ``sum(selend)`` at the start of every block. Per position:
 ``out`` is defined in ``full``, ``notake`` and ``noroll`` and zero in the
 other modes. ``blocked_ablate`` runs the twin on CPU tensors and the CUDA
 kernel (``csrc/blocked_ablate.cu``) on CUDA tensors, or raises;
-``blocked_ablate.launches`` counts its kernel launches.
+``blocked_ablate.launches`` counts its kernel launches. The kernel runs on
+kernel B's frame (``csrc/blocked_sweep.cu``): one CTA of a sweep warp and
+three producer warps per window, chunks of ``chunk_positions(B)``
+positions in a double buffer of ``shared_bytes(B, L)`` bytes of shared
+memory, uint16 arrival counts.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from genome_downsampler_tpu_torch.ops import build
-from genome_downsampler_tpu_torch.ops.blocked import _arrival_rows, _check_i32, _shift
+from genome_downsampler_tpu_torch.ops.blocked import (
+    _CUDA_MAX_STARTS,
+    _arrival_rows,
+    _check_i32,
+    _max_starts,
+    _shift,
+)
 
 MODES = ("full", "notake", "noroll", "noemit", "addonly", "tileonly",
          "emptyloop")
@@ -39,8 +51,32 @@ MODES = ("full", "notake", "noroll", "noemit", "addonly", "tileonly",
 EMITTING = ("full", "notake", "noroll")
 # ring widths the CUDA kernel takes (one template instantiation each)
 _CUDA_SPANS = (32, 64, 128, 256)
-# the shared memory one block may use, which holds the (B, L) int32 tile
-_MAX_TILE_BYTES = 227 * 1024
+
+
+def chunk_positions(B: int) -> int:
+    """Positions per chunk of the CUDA kernel at block ``B`` (the kernel's
+    ``chunk_positions``): chunks are cut within a block."""
+    return min(B, 128)
+
+
+def shared_bytes(B: int, L: int) -> int:
+    """Dynamic shared memory of one CTA: two uint16 ``(P, L)`` tiles, and
+    two chunks each of targets and emitted counts."""
+    p = chunk_positions(B)
+    return 2 * 2 * p * L + 4 * 4 * p
+
+
+def kernel_info(B: int, L: int, mode: str) -> dict:
+    """What the built kernel of ``mode`` at ``L`` reports at block ``B``:
+    ``{"chunk_positions", "shared_bytes", "registers", "local_bytes"}``
+    (``local_bytes`` > 0 means spills). Needs the CUDA library."""
+    info = (ctypes.c_int64 * 4)()
+    lib = build.load_kernels()
+    build.check("gd_blocked_ablate_info",
+                lib.gd_blocked_ablate_info(B, L, MODES.index(mode),
+                                           ctypes.addressof(info)))
+    return dict(zip(("chunk_positions", "shared_bytes", "registers", "local_bytes"),
+                    info))
 
 
 def _ablate_args(packed, target, W, B, L, mode):
@@ -99,24 +135,24 @@ def blocked_ablate_plain(packed, target, n_windows, block, max_span, mode):
     return out, avail, selend
 
 
-def blocked_ablate(packed, target, n_windows, block, max_span, mode):
-    """One ablation pass (``make_kernel``) over W windows.
-
-    ``packed`` int32 ``(nbw, W, cap)``: each (block, window) group's codes
-    ``start_rel * L + span - 1``, ``-1`` pads (``_native.pack_blocked``);
-    ``target`` int32 ``(W, nbw * B)``, the capped coverage. Returns
-    ``(out[W, nbw * B], availf[W, L], selendf[W, L])`` int32."""
-    if packed.device.type == "cpu":
-        return blocked_ablate_plain(packed, target, n_windows, block, max_span,
-                                    mode)
-    W, B, L = n_windows, block, max_span
+def _launch(packed, target, W, B, L, mode):
+    """The CUDA kernel on checked tensors, or a ``ValueError`` naming the
+    bound it does not take; never the twin."""
     nbw = _ablate_args(packed, target, W, B, L, mode)
-    if L not in _CUDA_SPANS or B * L * 4 > _MAX_TILE_BYTES:
+    if L not in _CUDA_SPANS:
         raise ValueError(
-            f"CUDA ablation kernel supports max_span in {_CUDA_SPANS} and a "
-            f"(block, max_span) int32 tile of at most {_MAX_TILE_BYTES} "
-            f"bytes; got max_span={L}, block={B}"
+            f"CUDA ablation kernel supports max_span in {_CUDA_SPANS}; got "
+            f"max_span={L}"
         )
+    # a group holds at most cap reads, so only a larger cap needs the count
+    if packed.shape[2] > _CUDA_MAX_STARTS:
+        most = _max_starts(packed, B, L)
+        if most > _CUDA_MAX_STARTS:
+            raise ValueError(
+                f"CUDA ablation kernel takes at most {_CUDA_MAX_STARTS} reads of a "
+                f"window starting at one position (its arrival tile counts in "
+                f"uint16); got {most}"
+            )
     if packed.device.type != "cuda":
         raise ValueError(f"no ablation kernel for device {packed.device}")
     dev = packed.device
@@ -135,6 +171,22 @@ def blocked_ablate(packed, target, n_windows, block, max_span, mode):
     build.check("gd_blocked_ablate", rc)
     blocked_ablate.launches += 1
     return out, availf, selendf
+
+
+def blocked_ablate(packed, target, n_windows, block, max_span, mode):
+    """One ablation pass (``make_kernel``) over W windows.
+
+    ``packed`` int32 ``(nbw, W, cap)``: each (block, window) group's codes
+    ``start_rel * L + span - 1``, ``-1`` pads (``_native.pack_blocked``);
+    ``target`` int32 ``(W, nbw * B)``, the capped coverage. Returns
+    ``(out[W, nbw * B], availf[W, L], selendf[W, L])`` int32.
+
+    On CUDA tensors the kernel takes L in ``_CUDA_SPANS``, any even B and at
+    most ``_CUDA_MAX_STARTS`` reads of a window starting at one position."""
+    if packed.device.type == "cpu":
+        return blocked_ablate_plain(packed, target, n_windows, block, max_span,
+                                    mode)
+    return _launch(packed, target, n_windows, block, max_span, mode)
 
 
 blocked_ablate.launches = 0

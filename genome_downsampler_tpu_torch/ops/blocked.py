@@ -181,9 +181,9 @@ def blocked_sweep_pass_plain(
 
 
 def _kernel_b(entry, packed, counts, target, avail0, selend0, avail0i, W, B, L,
-              grid_offset, auto_target, max_coverage, *extra):
-    """Launch kernel B's C entry ``entry`` (its arguments, then ``extra``) on
-    checked CUDA tensors; returns the outputs of ``blocked_sweep_pass``."""
+              grid_offset, auto_target, max_coverage):
+    """Launch kernel B's C entry ``entry`` on checked CUDA tensors; returns
+    the outputs of ``blocked_sweep_pass``."""
     _check_cuda_span("sweep", L)
     if B > _CUDA_MAX_BLOCK:
         raise ValueError(f"CUDA sweep kernel supports block <= {_CUDA_MAX_BLOCK}; "
@@ -204,7 +204,7 @@ def _kernel_b(entry, packed, counts, target, avail0, selend0, avail0i, W, B, L,
             args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
             out.data_ptr(), availf.data_ptr(), selendf.data_ptr(),
             availfi.data_ptr(), nbw, W, cap, B, L, grid_offset,
-            int(auto_target), int(max_coverage), *extra,
+            int(auto_target), int(max_coverage),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(entry, rc)
     return out, availf, selendf, availfi
@@ -285,11 +285,9 @@ def blocked_sweep_wide(
     W, B, L = n_windows, block, max_span
     avail0i = _sweep_args(packed, counts, target, avail0, selend0, avail0i,
                           W, B, L, grid_offset, auto_target)
-    # the C entry's last argument, wide_tile, is ignored: every count there
-    # is int32
     res = _kernel_b("gd_blocked_sweep_wide", packed, counts, target, avail0,
                     selend0, avail0i, W, B, L, grid_offset, auto_target,
-                    max_coverage, 1)
+                    max_coverage)
     blocked_sweep_wide.launches += 1
     return res
 

@@ -37,8 +37,8 @@ _SIGNATURES = {
     #  out, availf, selendf, availfi,
     #  nbw, W, cap, B, L, grid_offset, auto_target, max_coverage, stream)
     "gd_blocked_sweep": [_P] * 10 + [_I] * 8 + [_P],
-    # gd_blocked_sweep's arguments, then wide_tile, stream
-    "gd_blocked_sweep_wide": [_P] * 10 + [_I] * 9 + [_P],
+    # gd_blocked_sweep's arguments
+    "gd_blocked_sweep_wide": [_P] * 10 + [_I] * 8 + [_P],
     # (packed, counts, sel, xwin, out, nbw, W, cap, B, L, stream)
     "gd_blocked_select": [_P] * 5 + [_I] * 5 + [_P],
     # (rows, target, avail0, selend0, out, takes, availf, selendf,
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "gd_sweep_variant_info": [_I, _I, _P],
     # (packed, target, out, availf, selendf, nbw, W, cap, B, L, mode, stream)
     "gd_blocked_ablate": [_P] * 5 + [_I] * 6 + [_P],
+    # (B, L, mode, info[4])
+    "gd_blocked_ablate_info": [_I, _I, _I, _P],
     # (bstart, bend1, off0, cap, pool, run_lo, run_hi, excess0, orderF,
     #  rangeF, orderB, rangeB, flow, scalars, ws, n, B, R, G, capF, capB,
     #  phase_cap, stream)

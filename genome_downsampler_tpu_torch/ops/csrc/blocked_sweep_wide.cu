@@ -442,15 +442,12 @@ cudaError_t launch(const int32_t* counts, const int32_t* packed, const int32_t* 
 
 // Returns the cudaError_t of the launch (0 on success). The arguments are
 // gd_blocked_sweep's, with any L = 32 * S up to 4096 and B at most 256;
-// wide_tile (which chose uint16 or int32 arrival counts in an earlier
-// version) is ignored: every count here is int32.
+// every count here is int32.
 extern "C" int gd_blocked_sweep_wide(
     const void* counts, const void* packed, const void* target, const void* avail0,
     const void* selend0, const void* avail0i, void* out, void* availf, void* selendf,
     void* availfi, int64_t nbw, int64_t W, int64_t cap, int64_t B, int64_t L,
-    int64_t grid_offset, int64_t auto_target, int64_t max_coverage, int64_t wide_tile,
-    void* stream) {
-  (void)wide_tile;
+    int64_t grid_offset, int64_t auto_target, int64_t max_coverage, void* stream) {
   if (B > kMaxBlock || B < 1 || W < 1 || grid_offset < 0 || grid_offset >= nbw || cap < 0 ||
       L < 32 || L > kMaxSpan || L % 32 != 0)
     return (int)cudaErrorInvalidValue;

@@ -10,7 +10,14 @@ chunk 128 for B <= 128 and 256 above. Times each of the seven modes of
 ``ops/ablate.py`` (the least of 5 launches after one warm launch) and
 prints ms and ns per step (one position of all W windows). Only ``full``
 is a correct sweep: its ``out`` is checked against kernel A run over the
-head of each window's arrival rows from zero carries (``match=``).
+head of each window's arrival rows from zero carries (``match=``), and its
+``out`` and carries against kernel B (``blocked_sweep_pass``: targets
+given, zero carries, grid offset 0) on the same codes (``match_b=``); no
+read of the default has span L, so the two compute the same function.
+``full`` and kernel B are then timed side by side, in turns (full, B, B,
+full). Last, the pieces of the step in ns per step (``pieces_ns``): take
+= full - notake, shift = full - noroll, emit = full - noemit, fold =
+addonly - emptyloop, handover = emptyloop - tileonly.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 from genome_downsampler_tpu_torch import _native
 from genome_downsampler_tpu_torch.device import gpu_report, require_cuda
 from genome_downsampler_tpu_torch.ops.ablate import MODES, blocked_ablate
+from genome_downsampler_tpu_torch.ops.blocked import blocked_sweep_pass
 from genome_downsampler_tpu_torch.ops.sweep import dense_sweep_counts
 from genome_downsampler_tpu_torch.scripts import best_ms
 
@@ -42,14 +50,14 @@ def problem(reads_m, seed=SEED):
 
 
 def pack(start, end, n, W, B, max_span, max_coverage, device):
-    """``(packed[nbw, W, cap], target[W, win])`` int32 on ``device``, packed
-    with chunk 128 for ``B <= 128`` and 256 above, and ``win``."""
-    packed, _, win, n_pad, _ = _native.pack_blocked(
+    """``(packed[nbw, W, cap], counts[nbw, W], target[W, win])`` int32 on
+    ``device``, packed with chunk 128 for ``B <= 128`` and 256 above, and
+    ``win``."""
+    packed, counts, win, n_pad, _ = _native.pack_blocked(
         start, end, n, W, B, max_span, cap_multiple=128 if B <= 128 else 256
     )
     target = _native.capped_target(start, end, n_pad, max_coverage).reshape(W, win)
-    return (torch.tensor(packed, device=device), torch.tensor(target, device=device),
-            win)
+    return (*(torch.tensor(x, device=device) for x in (packed, counts, target)), win)
 
 
 def window_rows(start, end, win, W, head, max_span, device):
@@ -64,35 +72,67 @@ def window_rows(start, end, win, W, head, max_span, device):
     return rows.reshape(W, head, max_span)
 
 
+def pieces_ns(res):
+    """The step's pieces in ns per step from ``run``'s results at one
+    geometry: ``{"take", "shift", "emit", "fold", "handover"}``."""
+    ns = {m: res[m]["ns_per_step"] for m in MODES}
+    return {"take": ns["full"] - ns["notake"], "shift": ns["full"] - ns["noroll"],
+            "emit": ns["full"] - ns["noemit"], "fold": ns["addonly"] - ns["emptyloop"],
+            "handover": ns["emptyloop"] - ns["tileonly"]}
+
+
 def run(device, reads_m=6.0, geometries=((64, 128),), *, reps=5, log=print):
     """Time the seven modes at each ``(W, B)``; returns ``{(W, B): {"win",
-    "packed", "target", "kernel_a", "match", mode: {"ms", "ns_per_step",
-    "out"}}}``. ``match`` holds ``full``'s ``out`` against ``kernel_a``,
-    kernel A over the first ``CHECK_POSITIONS`` positions of every
-    window."""
+    "packed", "counts", "target", "kernel_a", "match", "kernel_b", "match_b",
+    "turns", "pieces_ns", mode: {"ms", "ns_per_step", "out"}}}``. ``match``
+    holds ``full``'s ``out`` against ``kernel_a``, kernel A over the first
+    ``CHECK_POSITIONS`` positions of every window; ``match_b`` its ``out``
+    and carries against kernel B on the same codes, ``kernel_b`` (``{"ms",
+    "ns_per_step"}``) the lesser of kernel B's turns, ``turns`` ``{"full":
+    [ms, ms], "kernel_b": [ms, ms]}`` in the order full, B, B, full."""
     dev = torch.device(device)
     start, end, n = problem(reads_m)
     log(f"{start.shape[0]} reads / {n / 1e6:.1f} Mb")
     L = MAX_SPAN
     results = {}
     for W, B in geometries:
-        packed, target, win = pack(start, end, n, W, B, L, MAX_COVERAGE, dev)
+        packed, counts, target, win = pack(start, end, n, W, B, L, MAX_COVERAGE, dev)
         nbw, _, cap = packed.shape
         log(f"W={W} B={B}: cap={cap} nbw={nbw} packed={4 * packed.numel() / 1e6:.0f}MB")
-        res = results[(W, B)] = {"win": win, "packed": packed, "target": target}
+        res = results[(W, B)] = {"win": win, "packed": packed, "counts": counts,
+                                 "target": target}
         for mode in MODES:
-            (out, _, _), ms = best_ms(
+            got, ms = best_ms(
                 lambda: blocked_ablate(packed, target, W, B, L, mode), dev, reps
             )
-            res[mode] = {"ms": ms, "ns_per_step": 1e6 * ms / win, "out": out}
+            res[mode] = {"ms": ms, "ns_per_step": 1e6 * ms / win, "out": got[0]}
+            if mode == "full":
+                full = got
             log(f"  {mode:9s}: {ms:9.3f} ms = {1e6 * ms / win:7.1f} ns/step")
+        z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+        runs = {"full": lambda: blocked_ablate(packed, target, W, B, L, "full"),
+                "kernel_b": lambda: blocked_sweep_pass(packed, counts, target, z, z, W,
+                                                       B, L)}
+        turns = res["turns"] = {"full": [], "kernel_b": []}
+        for who in ("full", "kernel_b", "kernel_b", "full"):
+            got, ms = best_ms(runs[who], dev, reps)
+            turns[who].append(ms)
+            log(f"  turn {who:8s}: {ms:9.3f} ms = {1e6 * ms / win:7.1f} ns/step")
+            if who == "kernel_b":
+                kernel_b = got[:3]  # out, availf, selendf
+        kb = min(turns["kernel_b"])
+        res["kernel_b"] = {"ms": kb, "ns_per_step": 1e6 * kb / win}
+        res["match_b"] = all(torch.equal(a, b) for a, b in zip(full, kernel_b))
+        res["pieces_ns"] = pieces_ns(res)
+        log("  pieces (ns/step): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in res["pieces_ns"].items()))
         head = min(win, CHECK_POSITIONS)
         rows = window_rows(start, end, win, W, head, L, dev)
-        z = torch.zeros((W, L), dtype=torch.int32, device=dev)
         ref = dense_sweep_counts(rows, target[:, :head].contiguous(), z, z, L)[0]
         res["kernel_a"] = ref
         res["match"] = torch.equal(res["full"]["out"][:, :head], ref)
-        log(f"  full == kernel A over the first {head} positions of the {W} "
+        log(f"  full == kernel B on the same codes: match_b={res['match_b']}; "
+            f"full == kernel A over the first {head} positions of the {W} "
             f"windows: match={res['match']}")
     return results
 
@@ -108,8 +148,8 @@ def main(argv=None):
     print(gpu_report(), flush=True)
     results = run(dev, reads_m, geometries or [(64, 128)],
                   log=lambda *a: print(*a, flush=True))
-    if not all(r["match"] for r in results.values()):
-        raise SystemExit("full differs from kernel A")
+    if not all(r["match"] and r["match_b"] for r in results.values()):
+        raise SystemExit("full differs from kernel A or kernel B")
 
 
 if __name__ == "__main__":

@@ -843,34 +843,92 @@ def test_sweep_variants_geometry_and_no_spill(cuda, L, ring):
     assert info["local_bytes"] == 0 and 0 < info["registers"] <= 255
 
 
-@pytest.mark.parametrize("mode", ablate.MODES)
-@pytest.mark.parametrize("L", [64, 256])
-def test_ablate_kernel_matches_plain(cuda, L, mode):
-    # W=4 windows of 4 * L / 64 blocks, about 3 reads starting per position,
-    # reads of span 1 where each window starts (so noroll emits), every
-    # fifth code moved to span L; L=256 is the default's geometry
-    n = 1000 * L // 64
+def _ablate_case(B, L, span_l=True):
+    """W=4 windows of at least two blocks, about 3 reads starting per
+    position, reads of span 1 where each window starts (so noroll emits and
+    its cur drifts across the kernel's chunks), every fifth code moved to
+    span L unless ``span_l`` is false: ``(packed, counts, target)`` numpy."""
+    n = max(1000 * L // 64, 1000 * B // 128)
     rng = np.random.default_rng(3)
     start = np.sort(rng.integers(0, n - L, 3 * n))
     end = start + rng.integers(0, L - 1, 3 * n)
-    one = np.repeat(np.arange(4) * (-(-n // 512) * 128), 2)
+    one = np.repeat(np.arange(4) * (-(-n // (4 * B)) * B), 2)
     start, end = np.concatenate([start, one]), np.concatenate([end, one])
-    packed, _, win, n_pad, _ = _native.pack_blocked(start, end, n, 4, 128, L,
-                                                    cap_multiple=128)
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, 4, B, L,
+                                                         cap_multiple=128)
     packed = np.array(packed)
-    sel = (packed >= 0) & (np.arange(packed.size).reshape(packed.shape) % 5 == 0)
-    packed[sel] = (packed[sel] // L) * L + L - 1
-    p = torch.tensor(packed, device=cuda)
-    t = torch.tensor(_native.capped_target(start, end, n_pad, 5).reshape(4, win),
-                     device=cuda)
+    assert packed.shape[0] >= 2
+    if span_l:
+        sel = (packed >= 0) & (np.arange(packed.size).reshape(packed.shape) % 5 == 0)
+        packed[sel] = (packed[sel] // L) * L + L - 1
+        assert sel.sum() > 10
+    return packed, np.array(counts), _native.capped_target(
+        start, end, n_pad, 5).reshape(4, win)
+
+
+@pytest.mark.parametrize("mode", ablate.MODES)
+@pytest.mark.parametrize("B,L", [(128, 32), (128, 64), (128, 128), (128, 256), (192, 64),
+                                 (256, 32), (256, 64), (256, 128), (256, 256)])
+def test_ablate_kernel_matches_plain(cuda, B, L, mode):
+    # L=256, B=128 is the default's geometry; B above 128 cuts each block
+    # in two chunks, so noroll's re-sync falls inside a block's second one
+    packed, _, target = _ablate_case(B, L)
+    p, t = torch.tensor(packed, device=cuda), torch.tensor(target, device=cuda)
     n0 = ablate.blocked_ablate.launches
-    got = ablate.blocked_ablate(p, t, 4, 128, L, mode)
+    got = ablate.blocked_ablate(p, t, 4, B, L, mode)
     torch.cuda.synchronize()
     assert ablate.blocked_ablate.launches == n0 + 1
-    ref = ablate.blocked_ablate_plain(p, t, 4, 128, L, mode)
+    ref = ablate.blocked_ablate_plain(p, t, 4, B, L, mode)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    assert sel.sum() > 10 and (mode not in ("full", "noroll") or ref[0].any())
+    assert mode not in ("full", "noroll") or ref[0].any()
+
+
+@pytest.mark.parametrize("B,L", [(128, 64), (128, 256), (256, 256)])
+def test_ablate_full_equals_kernel_b(cuda, B, L):
+    # spans below L: the ablation's full computes kernel B's function
+    packed, counts, target = _ablate_case(B, L, span_l=False)
+    p, c, t = (torch.tensor(x, device=cuda) for x in (packed, counts, target))
+    z = torch.zeros((4, L), dtype=torch.int32, device=cuda)
+    got = ablate.blocked_ablate(p, t, 4, B, L, "full")
+    ref = blocked.blocked_sweep_pass(p, c, t, z, z, 4, B, L)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref[:3]):
+        assert torch.equal(g, r)
+    assert got[0].any() and got[2].any()
+
+
+@pytest.mark.parametrize("hot", [65_535, 65_536])
+def test_ablate_kernel_takes_65535_starts_at_one_position_and_refuses_more(cuda, hot):
+    # one group of cap = 65,536 slots, hot reads of span 5 starting at
+    # position 3, the rest pads
+    packed = torch.full((1, 2, 65_536), -1, dtype=torch.int32)
+    packed[0, 0, :hot] = 3 * 64 + 4
+    p = packed.to(cuda)
+    t = torch.full((2, 128), 7, dtype=torch.int32, device=cuda)
+    if hot > 65_535:
+        n0 = ablate.blocked_ablate.launches
+        with pytest.raises(ValueError, match="at most 65535 reads"):
+            ablate.blocked_ablate(p, t, 2, 128, 64, "full")
+        assert ablate.blocked_ablate.launches == n0
+        return
+    for mode in ("full", "addonly"):
+        got = ablate.blocked_ablate(p, t, 2, 128, 64, mode)
+        torch.cuda.synchronize()
+        ref = ablate.blocked_ablate_plain(p, t, 2, 128, 64, mode)
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+    assert int(got[1].sum()) == 65_535
+
+
+@pytest.mark.parametrize("B", [2, 128, 256])
+@pytest.mark.parametrize("mode", ablate.MODES)
+@pytest.mark.parametrize("L", [32, 64, 128, 256])
+def test_ablate_geometry_and_no_spill(cuda, L, mode, B):
+    info = ablate.kernel_info(B, L, mode)
+    assert info["chunk_positions"] == ablate.chunk_positions(B)
+    assert info["shared_bytes"] == ablate.shared_bytes(B, L)
+    assert info["local_bytes"] == 0 and 0 < info["registers"] <= 255
 
 
 def test_variant_and_ablate_kernels_reject_what_they_do_not_take(cuda):
@@ -880,10 +938,13 @@ def test_variant_and_ablate_kernels_reject_what_they_do_not_take(cuda):
         variants.sweep_variant_c(r, t, 48)
     with pytest.raises(ValueError, match="max_span in"):
         variants.sweep_variant_b(r, t, 48)
-    p = torch.full((1, 2, 128), -1, dtype=torch.int32, device=cuda)
+    # 65,536 reads of a window starting at one position: the arrival
+    # tile's uint16 counts
     with pytest.raises(ValueError, match="tile"):
-        ablate.blocked_ablate(p, torch.zeros((2, 512), dtype=torch.int32, device=cuda),
-                              2, 512, 256, "full")
+        ablate.blocked_ablate(
+            torch.full((1, 2, 65_536), 5, dtype=torch.int32, device=cuda),
+            torch.zeros((2, 128), dtype=torch.int32, device=cuda), 2, 128, 64, "full")
+    p = torch.full((1, 2, 128), -1, dtype=torch.int32, device=cuda)
     # a device that is neither CPU nor CUDA: no silent twin
     with pytest.raises(ValueError, match="no sweep variant"):
         variants.sweep_variant_c(torch.zeros((16, 32), dtype=torch.int32, device="meta"),

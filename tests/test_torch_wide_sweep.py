@@ -12,12 +12,16 @@
   70,000 reads starting at one position; the producers' shares against
   the offsets and the ring they stand for;
 - the read sets of ``testing/long_reads.py`` at a tiny size through the
-  blocked solver's CPU twins, against ``mcp-cpu``.
+  blocked solver's CPU twins, against ``mcp-cpu``;
+- ``chip_smoke.py --against``'s binding of the wide path's C entry, with
+  and without the ``wide_tile`` argument of its earlier sources.
 
 Every comparison is integer bit-equality; inputs come from numpy seeds.
 """
 
+import importlib.util
 import inspect
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -377,3 +381,38 @@ def test_artic_deep_stacks_exceed_uint16_at_every_primer():
     np.testing.assert_array_equal(np.bincount(s[0::2], minlength=29_903)[primers], 50)
     np.testing.assert_array_equal(np.unique(e[1::2]), primers + 399)
     assert (e - s + 1).min() >= 100 and (e - s + 1).max() <= 150 and e.max() < 29_903
+
+
+# the wide path's C entry as its earlier sources declared it: the port's
+# arguments, then wide_tile
+WIDE_TILE_ENTRY = """
+extern "C" int gd_blocked_sweep_wide(
+    const void* counts, const void* packed, const void* target, const void* avail0,
+    const void* selend0, const void* avail0i, void* out, void* availf, void* selendf,
+    void* availfi, int64_t nbw, int64_t W, int64_t cap, int64_t B, int64_t L,
+    int64_t grid_offset, int64_t auto_target, int64_t max_coverage, int64_t wide_tile,
+    void* stream) {
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("source", ["port", "with wide_tile"])
+def test_against_binds_the_wide_entry_with_and_without_wide_tile(tmp_path, source):
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("_chip_smoke", root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from genome_downsampler_tpu_torch.ops import build
+
+    path = tmp_path / "other.cu"
+    path.write_text(WIDE_TILE_ENTRY if source == "with wide_tile" else (
+        root / "genome_downsampler_tpu_torch" / "ops" / "csrc" / "blocked_sweep_wide.cu"
+    ).read_text())
+    assert cs.against_entry(path) == "gd_blocked_sweep_wide"
+    sig = cs.against_signature(path, "gd_blocked_sweep_wide")
+    if source == "port":
+        assert sig == build._SIGNATURES["gd_blocked_sweep_wide"]
+        assert sig == build._SIGNATURES["gd_blocked_sweep"] and len(sig) == 19
+    else:
+        assert sig == cs.WIDE_TILE_SIGNATURE and len(sig) == 20
