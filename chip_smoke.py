@@ -79,6 +79,17 @@ package. Phases, each of which raises on failure:
     ``mcp-cuda`` solve and one warm config-1 ``qmcp-cuda`` solve: the
     device's busy share of the traced window and device time per kernel;
     the traces under ``build/profile/``.
+16. ``quasi-mcp-flow-cuda`` (push-relabel max-flow as torch ops on the
+    card; no hand kernel yet) through the registry, warm, beside
+    ``mcp-cpu``: at the 3,000-base cut and config-1 the read set and the
+    supersteps equal the same solver's run on the CPU; at the reference's
+    largest workload (1M pairs over 30,000 bases, M=1000) coverage valid
+    and fewer reads than given; per cell the supersteps, global relabels,
+    closure rounds and host syncs, ms a superstep beside its bound (28
+    bytes an arc: the table's five int32 columns and two label gathers)
+    and the laps; the device's busy share of one traced cut solve
+    (``build/profile/flow/``); all also as one ``{"push_relabel": ...}``
+    JSON line.
 
 Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
 reads at L=1,024 and 4,096, from zero and seeded carries, timed; 70,000
@@ -213,6 +224,20 @@ QMCP_64K = (54_791, 65_536, 100)
 QMCP_EDGE = (109_583, 131_072, 100)
 QMCP_HOST = (219_166, 262_144, 100)
 PROFILE_DIR = ROOT / "build" / "profile"
+# quasi-mcp-flow-cuda's cells (pairs of 150 bp reads, genome, M): the
+# 3,000-base cut and config-1, held to the same solver on the CPU, and the
+# reference's largest workload (1M pairs over 30 kb, M=1000, its
+# coverage_tester's biggest; the JAX suite's test_reference_largest_workload_scale)
+FLOW_LARGEST = (1_000_000, 30_000, 1000)
+# bytes a superstep moves at the least: one read of the arc table's five
+# int32 columns and the two label gathers, 4 bytes each, per arc; a round
+# of the distance closure: d read and written once (8 bytes a line node),
+# each read's start and end + 1 (int32) and its two residual flags (bool)
+# read once (10 bytes a padded read); the arc table's build: start and end
+# read once, the five int32 columns written once
+FLOW_BYTES_PER_ARC = 28
+FLOW_ROUND_BYTES_PER_NODE, FLOW_ROUND_BYTES_PER_READ = 8, 10
+FLOW_TABLE_BYTES_PER_READ, FLOW_TABLE_BYTES_PER_ARC = 8, 20
 # gd_blocked_sweep_wide as its earlier sources declared it:
 # gd_blocked_sweep's arguments, then wide_tile
 WIDE_TILE_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
@@ -1681,7 +1706,7 @@ def busy_share(prof, window_s):
         # kernels and copies; not the solvers' named regions mirrored there
         if e.device_type == DeviceType.CUDA and not (
                 getattr(e, "is_user_annotation", False)
-                or e.name.startswith(("blocked.", "dense.", "qmcp."))):
+                or e.name.startswith(("blocked.", "dense.", "qmcp.", "flow."))):
             spans.append((e.time_range.start, e.time_range.end))
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy, end = 0.0, float("-inf")
@@ -1728,6 +1753,105 @@ def phase_profile(dev, report):
             log(f"    device {v:.3f} ms  {k[:90]}")
         del batch
     return shares
+
+
+def phase_push_relabel(dev, report):
+    """quasi-mcp-flow-cuda through the registry, warm, beside mcp-cpu: at
+    the 3,000-base cut and config-1 the read set and the supersteps equal
+    the same solver's on the CPU; coverage valid at all three cells, the
+    selection smaller than the reads; no hand kernel launched (the solver
+    is torch ops on the card); the card's busy share of one traced cut
+    solve. Returns {cell: counts, times, bound}."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch.solvers.push_relabel import QuasiMcpPushRelabelSolver
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+    from genome_downsampler_tpu_torch.utils.profiling import trace
+
+    reg = default_registry()
+    solver = reg.get("quasi-mcp-flow-cuda")
+    cut = uniform_batch(*SSP_CUT[:2])
+    solver.solve(SSP_CUT[2], cut)  # warm (torch ops: nothing compiles per size)
+    out = {}
+    for label, (pairs, n, m), hold in (("3,000-base cut", SSP_CUT, True),
+                                       ("config-1", C1, True),
+                                       ("1M pairs over 30 kb", FLOW_LARGEST, False)):
+        batch = uniform_batch(pairs, n)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel = solver.solve(m, batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        expect_launches(read_launches())
+        stats = solver.inner.last_stats
+        t0 = time.perf_counter()
+        host = reg.get("mcp-cpu").solve(m, batch)
+        host_s = time.perf_counter() - t0
+        check_valid(dev, batch, sel, m)
+        if not len(sel) < batch.n_reads:
+            raise AssertionError(f"{label}: no downsampling ({len(sel)} of {batch.n_reads})")
+        cell = {"reads": batch.n_reads, "n": n, "M": m, "selected": len(sel),
+                "mcp_cpu_selected": len(host), "solve_s": dt, "mcp_cpu_s": host_s}
+        if hold:
+            cpu = QuasiMcpPushRelabelSolver("cpu")
+            t0 = time.perf_counter()
+            cpu_sel = cpu.solve(m, batch)
+            cell["cpu_solve_s"] = time.perf_counter() - t0
+            if not np.array_equal(sel, cpu_sel):
+                raise AssertionError(f"{label}: read set differs from the CPU run "
+                                     f"({len(sel)} vs {len(cpu_sel)})")
+            if cpu.last_stats["supersteps"] != stats["supersteps"]:
+                raise AssertionError(f"{label}: {stats['supersteps']} supersteps, "
+                                     f"{cpu.last_stats['supersteps']} on the CPU")
+        pad = solver.inner.pad_multiple
+        r_pad = -(-batch.n_reads // pad) * pad
+        arcs = 2 * r_pad + 2 * n + 3 * (n + 1)
+        b_ms, b_by = bound(0, FLOW_BYTES_PER_ARC * arcs)
+        round_ms = bound(0, FLOW_ROUND_BYTES_PER_NODE * (n + 1)
+                         + FLOW_ROUND_BYTES_PER_READ * r_pad)[0]
+        table_ms = bound(0, FLOW_TABLE_BYTES_PER_READ * r_pad + FLOW_TABLE_BYTES_PER_ARC * arcs)[0]
+        laps = stats["laps_s"]
+        cell.update({k: stats[k] for k in ("supersteps", "bodies", "global_relabels",
+                                           "closure_rounds", "host_syncs")})
+        cell.update(arcs=arcs, laps_s=laps,
+                    ms_per_superstep=1e3 * laps["supersteps"] / stats["bodies"],
+                    ms_per_closure_round=1e3 * laps["relabel"] / stats["closure_rounds"],
+                    bound_ms_per_superstep=b_ms, bound_by=b_by,
+                    bound_ms_per_closure_round=round_ms, arcs_lap_ms=1e3 * laps["arcs"],
+                    bound_ms_arc_table=table_ms)
+        out[label] = cell
+        log(f"  {label}: quasi-mcp-flow-cuda {len(sel)} of {batch.n_reads} reads "
+            f"(mcp-cpu {len(host)}), coverage valid"
+            + (", read set and supersteps equal to the CPU run "
+               f"({cell['cpu_solve_s']:.2f} s)" if hold else "")
+            + f"; {stats['supersteps']} supersteps ({stats['bodies']} run), "
+            f"{stats['global_relabels']} global relabels, {stats['closure_rounds']} "
+            f"closure rounds, {stats['host_syncs']} host syncs; warm solve {dt:.4f} s vs "
+            f"mcp-cpu {host_s:.4f} s; {cell['ms_per_superstep']:.4f} ms a superstep "
+            f"(bound {b_ms:.5f} ms, {b_by}, A={arcs}), "
+            f"{cell['ms_per_closure_round']:.4f} ms a closure round (bound {round_ms:.6f}); "
+            f"arcs lap {cell['arcs_lap_ms']:.3f} ms (the table's bound {table_ms:.5f})  "
+            f"[{report}]")
+        log(f"    laps: {json.dumps(laps)}")
+    # where a solve's wall time goes: the card's busy share of one cut solve
+    # (a config-1 trace would hold about a million events)
+    torch.cuda.synchronize()
+    with trace(PROFILE_DIR / "flow") as prof:
+        t0 = time.perf_counter()
+        solver.solve(SSP_CUT[2], cut)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    share, per = busy_share(prof, window)
+    out["3,000-base cut"]["busy_share"] = share
+    log(f"  3,000-base cut traced: window {window:.4f} s, device busy "
+        + (f"{100 * share:.2f}%" if share is not None else "not measured")
+        + f"; the busiest device ops: "
+        + ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in
+                    sorted(per.items(), key=lambda kv: -kv[1])[:4]) + f"  [{report}]")
+    log(json.dumps({"push_relabel": out}))
+    return out
 
 
 def wide_cases(dev):
@@ -2085,6 +2209,10 @@ def main(argv=None) -> int:
     ssp_entry["solves"] = qmcp
     phase("[15] profiler: device busy share of warm solves")
     ssp_entry["busy_share"] = phase_profile(dev, report)
+    torch.cuda.empty_cache()
+    phase("[16] quasi-mcp-flow-cuda (push-relabel, torch ops on the card): the "
+          "3,000-base cut, config-1, 1M pairs over 30 kb")
+    phase_push_relabel(dev, report)
     phase(None)
     log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -39,6 +39,15 @@ def capped_coverage(coverage: torch.Tensor, max_coverage: int) -> torch.Tensor:
     return torch.clamp(coverage, max=int(max_coverage))
 
 
+def demand_from_capped(capped: torch.Tensor) -> torch.Tensor:
+    """Node demands ``d[i] = b[i] - b[i+1]`` over nodes ``0..n`` of the
+    interval-flow network, with ``b = [0, capped..., 0]``; they sum to zero
+    (the reference's ``create_demand_function``)."""
+    z = capped.new_zeros(1)
+    b = torch.cat([z, capped, z])
+    return b[:-1] - b[1:]
+
+
 def coverage_is_valid(
     input_coverage: torch.Tensor, output_coverage: torch.Tensor, max_coverage: int
 ) -> bool:

@@ -4,8 +4,10 @@ The registry class and the CPU names are the JAX package's
 (``solvers/registry.py``), copied here with the host solvers they build.
 The accelerator names are ``*-cuda``: ``quasi-mcp-cuda`` is the
 reference's own name for its accelerator solver; ``mcp-cuda``,
-``mcp-cuda-blocked``, ``qmcp-sweep-cuda`` and ``qmcp-cuda`` mirror
-``mcp-tpu``, ``mcp-tpu-blocked``, ``qmcp-sweep-tpu`` and ``qmcp-tpu``. ``mcp-cuda`` and
+``mcp-cuda-blocked``, ``qmcp-sweep-cuda``, ``qmcp-cuda`` and
+``quasi-mcp-flow-cuda`` mirror ``mcp-tpu``, ``mcp-tpu-blocked``,
+``qmcp-sweep-tpu``, ``qmcp-tpu`` and ``quasi-mcp-flow-tpu`` (the
+deterministic push-relabel flow engine, torch ops on the card). ``mcp-cuda`` and
 ``quasi-mcp-cuda`` run the dense engine up to 262,144 bases and the blocked
 engine above, and refuse reads longer than 256 bases; ``mcp-cuda-blocked``
 always runs the blocked engine, which grows its span bound for longer
@@ -119,6 +121,14 @@ def _make_qmcp_cuda() -> Solver:
     return QmcpDeviceMcmfSolver(device="cuda")
 
 
+def _make_quasi_flow_cuda() -> Solver:
+    from genome_downsampler_tpu_torch.solvers.push_relabel import (
+        QuasiMcpPushRelabelSolver,
+    )
+
+    return QuasiMcpPushRelabelSolver(device="cuda")
+
+
 def default_registry() -> SolverRegistry:
     reg = SolverRegistry()
     reg.register("quasi-mcp-cpu", _make_greedy, uses_quality=False)
@@ -135,5 +145,7 @@ def default_registry() -> SolverRegistry:
     reg.register("qmcp-sweep-cuda", _make_qmcp_sweep_cuda, uses_quality=True)
     # the exact weighted optimum: successive shortest paths in one kernel
     reg.register("qmcp-cuda", _make_qmcp_cuda, uses_quality=True)
+    # a feasible selection by deterministic push-relabel max-flow
+    reg.register("quasi-mcp-flow-cuda", _make_quasi_flow_cuda, uses_quality=False)
     reg.register("test", _make_test, uses_quality=False)
     return reg

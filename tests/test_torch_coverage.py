@@ -37,6 +37,16 @@ def test_coverage_matches_jax(weighted):
     assert not coverage.coverage_is_valid(got, torch.zeros_like(got), 9)
 
 
+
+@pytest.mark.parametrize("n", [1, 11, 700])
+def test_demand_from_capped_matches_jax(n):
+    capped = np.random.default_rng(n).integers(0, 50, n).astype(np.int32)
+    ref = jax_cov.demand_from_capped(jnp.asarray(capped))
+    got = coverage.demand_from_capped(torch.from_numpy(capped))
+    assert got.dtype == torch.int32 and got.shape == (n + 1,)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(got.sum()) == 0
+
 def test_build_start_rows_and_sweep_counts_match_jax():
     rng = np.random.default_rng(12)
     n, L = 600, 32

@@ -952,3 +952,17 @@ def test_variant_and_ablate_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="no ablation kernel"):
         ablate.blocked_ablate(p.to("meta"), torch.zeros((2, 128), dtype=torch.int32,
                                                         device="meta"), 2, 128, 64, "full")
+
+
+def test_push_relabel_cuda_equals_cpu_at_the_3000_base_cut(cuda):
+    """quasi-mcp-flow-cuda's program on the card (torch ops, no hand
+    kernel yet) against the same program on the CPU, at the 3,000-base cut
+    of config-1 (2,508 pairs, M=100): read set and every count equal."""
+    from genome_downsampler_tpu_torch.solvers.push_relabel import QuasiMcpPushRelabelSolver
+
+    batch = rand_reads_uniform(np.random.default_rng(12345), 2_508, 3_000, 150)
+    on_card, on_cpu = QuasiMcpPushRelabelSolver(cuda), QuasiMcpPushRelabelSolver("cpu")
+    np.testing.assert_array_equal(on_card.solve(100, batch), on_cpu.solve(100, batch))
+    keys = ("supersteps", "bodies", "global_relabels", "closure_rounds", "host_syncs")
+    assert ({k: on_card.last_stats[k] for k in keys}
+            == {k: on_cpu.last_stats[k] for k in keys})

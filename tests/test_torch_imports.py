@@ -38,6 +38,7 @@ required = {
     "genome_downsampler_tpu_torch.solvers.device_sweep",
     "genome_downsampler_tpu_torch.ops.ssp",
     "genome_downsampler_tpu_torch.solvers.device_mcmf",
+    "genome_downsampler_tpu_torch.solvers.push_relabel",
     "genome_downsampler_tpu_torch.utils.profiling",
 }
 assert required <= set(names), sorted(required - set(names))
