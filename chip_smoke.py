@@ -89,7 +89,26 @@ package. Phases, each of which raises on failure:
     bytes an arc: the table's five int32 columns and two label gathers)
     and the laps; the device's busy share of one traced cut solve
     (``build/profile/flow/``); all also as one ``{"push_relabel": ...}``
-    JSON line.
+    JSON line;
+17. the mesh engines and ``--sharded`` (``parallel/``, over
+    ``torch.distributed``): (a) one rank over NCCL in this process: the
+    blocked mesh at config-4 (W_local=32, B=128, L=256), its read set
+    equal to ``mcp-cpu``'s, coverage valid, one kernel B launch a round,
+    timed beside ``mcp-cuda``'s blocked engine; the dense mesh at config-1
+    and the edge, ``sel`` equal to kernel A over the whole genome in one
+    launch; (b) two ranks on the one card over gloo (``python -m``
+    workers, ``testing.mesh_worker``): ``entry.dryrun_multichip`` at L=32
+    and the config-4 blocked mesh as 2 x 16 windows, ``sel`` equal to (a);
+    rounds, messages, bytes over the wire and across PCIe, host syncs; (c)
+    the CLI BAM -> BAM on 6M reads over 3 Mb (config-4's 300x depth, M=50)
+    laid out as pairs at most 600 bases apart (indexed with
+    ``write_bai``): ``-a mcp-cuda --sharded`` at
+    1 and 2 processes byte-equal to ``-a mcp-cuda`` and ``-a mcp-cpu``, and
+    ``-a qmcp-cuda --sharded`` at 2 processes equal to 1 on 200,000 such
+    reads over 30,000 bases (M=100), each run's wall time and the laps it
+    logs (read, pack, solve, reconstruct, gather, write); all also as one
+    ``{"sharded": ...}`` JSON line. Kernels A's and B's entries carry the
+    launches of (a) as ``sharded_launches``.
 
 Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
 reads at L=1,024 and 4,096, from zero and seeded carries, timed; 70,000
@@ -238,6 +257,15 @@ FLOW_LARGEST = (1_000_000, 30_000, 1000)
 FLOW_BYTES_PER_ARC = 28
 FLOW_ROUND_BYTES_PER_NODE, FLOW_ROUND_BYTES_PER_READ = 8, 10
 FLOW_TABLE_BYTES_PER_READ, FLOW_TABLE_BYTES_PER_ARC = 8, 20
+# phase 17: the blocked mesh's windows a rank and block at config-4 (one
+# rank: kernel B's config-4 geometry), the CLI cells (pairs of 150 bp reads,
+# genome, M; mates at most MAX_INSERT bases apart): config-4's depth (300x)
+# cut to 6M reads over 3 Mb, which keeps phase 17 near 150 s (at 10M reads
+# over 5 Mb it took 163.5 s), and phase 5's size for qmcp-cuda
+SHARDED_W_LOCAL, SHARDED_BLOCK = 32, 128
+SHARDED_CLI = (3_000_000, 3_000_000, C4_M)
+SHARDED_QMCP = (100_000, 30_000, 100)
+MAX_INSERT = 600
 # gd_blocked_sweep_wide as its earlier sources declared it:
 # gd_blocked_sweep's arguments, then wide_tile
 WIDE_TILE_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
@@ -2092,6 +2120,310 @@ def phase_long_reads(dev, report):
     return out
 
 
+def bounded_pairs(pairs, genome, max_insert, seed=SEED):
+    """150 bp pairs whose mates start at most ``max_insert - READ_LEN``
+    apart (uniform first mates, the layout of a real library): a sharded
+    run's halo can hold every pair. ``rand_reads_uniform`` places mates
+    independently, farther apart than any halo, and the fast BAM writer
+    writes no mate position, so the region read could not even report
+    those drops."""
+    import numpy as np
+
+    from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
+
+    rng = np.random.default_rng(seed)
+    first = rng.integers(0, genome - max_insert, pairs)
+    second = first + rng.integers(0, max_insert - READ_LEN + 1, pairs)
+    start = np.empty(2 * pairs, np.int64)
+    start[0::2], start[1::2] = first, second
+    return ReadBatch(
+        bam_id=np.arange(2 * pairs, dtype=np.int64), start=start,
+        end=start + READ_LEN - 1, quality=rng.integers(0, 61, 2 * pairs),
+        seq_length=np.full(2 * pairs, READ_LEN, np.int64),
+        is_first=np.tile([True, False], pairs), ref_genome_length=genome,
+    )
+
+
+def indexed_bam(path, batch):
+    """Write ``batch`` with the fast writer and index it (``write_bai``
+    over the records' voffsets, read back from the file)."""
+    import numpy as np
+
+    from genome_downsampler_tpu_torch.config import BamApiConfig
+    from genome_downsampler_tpu_torch.io.bai import write_bai
+    from genome_downsampler_tpu_torch.io.bam import read_bam_region
+    from genome_downsampler_tpu_torch.testing.bam_writer import write_test_bam_fast
+
+    write_test_bam_fast(path, batch)
+    region = read_bam_region(path, BamApiConfig(min_mapq=0, min_seq_length=0), 0,
+                             batch.ref_genome_length)
+    got = region.batch
+    if got.n_reads != batch.n_reads:
+        raise AssertionError(f"{path.name}: read back {got.n_reads} of {batch.n_reads}")
+    order = np.argsort(got.bam_id)
+    write_bai(str(path) + ".bai", got.start[order], got.end[order], got.bam_id[order])
+
+
+def cli_ranks(args, n_procs, timeout=900):
+    """The port's CLI as ``n_procs`` ranks of one ``--sharded`` job (the
+    GD_* environment, a free port), or one plain run; returns (wall s,
+    {rank: the laps it logged})."""
+    import os
+
+    from genome_downsampler_tpu_torch.testing.mesh_worker import free_port
+
+    env = dict(os.environ, GD_COORDINATOR=f"127.0.0.1:{free_port()}",
+               GD_NUM_PROCESSES=str(n_procs))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        logs = [Path(d) / f"rank{r}.log" for r in range(n_procs)]
+        procs = []
+        try:
+            for r in range(n_procs):
+                with open(logs[r], "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "genome_downsampler_tpu_torch", *args],
+                        cwd=ROOT, env=dict(env, GD_PROCESS_ID=str(r)), stdout=f,
+                        stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=timeout)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        texts = [f.read_text() for f in logs]
+    failed = [f"rank {r} of {n_procs} (rc {p.returncode}):\n{text[-3000:]}"
+              for r, (p, text) in enumerate(zip(procs, texts)) if p.returncode != 0]
+    if failed:
+        raise AssertionError(f"CLI {' '.join(args)} failed:\n" + "\n".join(failed))
+    laps = {}
+    for text in texts:
+        for line in text.splitlines():
+            m = re.search(r"sharded laps \(rank (\d+)\): (.*)$", line)
+            if m:
+                laps[int(m.group(1))] = json.loads(m.group(2))
+    return wall, laps
+
+
+def same_records(a, b) -> str:
+    """"file" if the two BAMs are byte-equal, "records" if their
+    decompressed streams are; raises otherwise."""
+    import gzip
+
+    if a.read_bytes() == b.read_bytes():
+        return "file"
+    if gzip.decompress(a.read_bytes()) == gzip.decompress(b.read_bytes()):
+        return "records"
+    raise AssertionError(f"{a.name} and {b.name} hold different records")
+
+
+def phase_sharded(dev, report):
+    """[17] the mesh engines and ``--sharded`` on the card. (a) world size 1
+    over NCCL, in-process: the blocked mesh at config-4 (read set equal to
+    mcp-cpu, coverage valid, one kernel B pass a round, timed beside
+    mcp-cuda's blocked engine) and the dense mesh at config-1 and the edge
+    (sel equal to kernel A on the whole genome, one launch); (b) two ranks
+    on the one card over gloo: the dry run at L=32 and the config-4 blocked
+    mesh split 2 x 16 windows, sel equal to (a); (c) the CLI BAM -> BAM,
+    ``-a mcp-cuda --sharded`` at 1 and 2 processes byte-equal to ``-a
+    mcp-cuda`` and ``-a mcp-cpu``, and ``-a qmcp-cuda --sharded`` at 2
+    processes equal to 1. Returns the ``{"sharded": ...}`` object and
+    kernels A's and B's launches in (a)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from genome_downsampler_tpu_torch.ops import sweep
+    from genome_downsampler_tpu_torch.parallel.launch import (
+        global_window_mesh,
+        initialize_distributed,
+    )
+    from genome_downsampler_tpu_torch.parallel.mesh import solve_on_mesh
+    from genome_downsampler_tpu_torch.parallel.sharded_io import solve_blocked_on_mesh
+    from genome_downsampler_tpu_torch.solvers.device_sweep import (
+        _dense_inputs,
+        reconstruct_selection,
+    )
+    from genome_downsampler_tpu_torch.solvers.registry import default_registry
+    from genome_downsampler_tpu_torch.testing.mesh_worker import spawn_ranks
+
+    out, kernel_launches = {"card": report}, {"blocked_sweep": 0, "dense_sweep": 0}
+    reg = default_registry()
+    batch = config4_batch()
+    W, B, L = SHARDED_W_LOCAL, SHARDED_BLOCK, 256
+
+    # (a) world size 1 over NCCL
+    if not initialize_distributed(num_processes=1, process_id=0, device=dev):
+        raise AssertionError("a process group was already up")
+    try:
+        mesh = global_window_mesh(dev)
+        if mesh.backend != "nccl" or mesh.wire.type != "cuda":
+            raise AssertionError(f"world size 1 runs {mesh.backend} on {mesh.wire}")
+
+        def blocked(stats):
+            return solve_blocked_on_mesh(mesh, batch.start, batch.end, C4_GENOME, C4_M,
+                                         W, B, L, stats=stats)
+
+        blocked({})  # warm-up
+        stats = {}
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel4 = blocked(stats)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches = read_launches()
+        expect_launches(launches, "blocked_sweep")
+        if launches["blocked_sweep"] != stats["rounds"]:
+            raise AssertionError(f"{launches} for {stats['rounds']} rounds")
+        kernel_launches["blocked_sweep"] += launches["blocked_sweep"]
+        picked = reconstruct_selection(batch.start, batch.end,
+                                       sel4[:C4_GENOME].astype(np.int64))
+        t0 = time.perf_counter()
+        host = reg.get("mcp-cpu").solve(C4_M, batch)
+        host_s = time.perf_counter() - t0
+        if not np.array_equal(picked, host):
+            raise AssertionError(f"blocked mesh read set differs from mcp-cpu "
+                                 f"({len(picked)} vs {len(host)})")
+        check_valid(dev, batch, picked, C4_M)
+        solver = reg.get("mcp-cuda")
+        solver.solve(C4_M, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(C4_M, batch)
+        torch.cuda.synchronize()
+        cuda_s = time.perf_counter() - t0
+        out["blocked_mesh_config4"] = {
+            "ranks": 1, "backend": "nccl", "W_local": W, "B": B, "L": L,
+            "launches": launches["blocked_sweep"], "solve_s": mesh_s,
+            "mcp_cuda_s": cuda_s, "mcp_cuda_rounds": solver.inner.last_stats["rounds"],
+            "mcp_cpu_s": host_s, **stats}
+        log(f"  (a) blocked mesh, 1 rank over NCCL, config-4 (W_local={W}, B={B}, L={L}): "
+            f"read set == mcp-cpu ({len(picked)} reads), coverage valid; {stats['rounds']} "
+            f"rounds, {launches['blocked_sweep']} kernel B launches, {stats['host_syncs']} "
+            f"host syncs; warm solve to per-end counts {mesh_s:.4f} s vs mcp-cuda "
+            f"(blocked engine, {solver.inner.last_stats['rounds']} rounds, to read "
+            f"indices) {cuda_s:.4f} s, mcp-cpu {host_s:.4f} s  [{report}]")
+        del host, picked
+
+        for label, (pairs, n, m) in (("config-1", C1), ("edge", EDGE)):
+            b = uniform_batch(pairs, n)
+            target, rows = _dense_inputs(b, n, m, L, dev)
+            z = torch.zeros((1, L), dtype=torch.int32, device=dev)
+            ref = sweep.dense_sweep_counts(rows, target, z, z, L)[0][0].cpu().numpy()
+            del target, rows
+            solve_on_mesh(mesh, b.start, b.end, n, m, L)  # warm-up
+            stats = {}
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sel = solve_on_mesh(mesh, b.start, b.end, n, m, L, stats=stats)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = read_launches()
+            expect_launches(launches, "dense_sweep")
+            if launches["dense_sweep"] != 1 or not np.array_equal(sel, ref):
+                raise AssertionError(f"dense mesh at {label}: launches {launches}, sel "
+                                     f"equal {np.array_equal(sel, ref)}")
+            kernel_launches["dense_sweep"] += 1
+            out[f"dense_mesh_{label}"] = {"ranks": 1, "n": n, "solve_s": dt,
+                                          "launches": 1, **stats}
+            log(f"  (a) dense mesh, 1 rank over NCCL, {label} ({n} bases): sel == kernel "
+                f"A on the whole genome, 1 launch, warm solve {dt:.4f} s  [{report}]")
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (b) two ranks on the one card over gloo
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        rcs, logs, res = spawn_ranks("dryrun", 2, Path(d) / "dry", device="cuda",
+                                     timeout=300)
+        if any(rcs):
+            raise AssertionError(f"2-rank dry run failed: {rcs}\n"
+                                 + "\n".join(t[-3000:] for t in logs))
+        out["dryrun_2_ranks"] = {k: int(v) for k, v in res[0].items() if k != "seconds"}
+        log(f"  (b) entry.dryrun_multichip, 2 ranks over gloo on one card, L=32: both "
+            f"engines == the sequential sweep; rounds dense "
+            f"{out['dryrun_2_ranks']['dense_rounds']}, blocked "
+            f"{out['dryrun_2_ranks']['blocked_rounds']}")
+        t0 = time.perf_counter()
+        rcs, logs, res = spawn_ranks(
+            "blocked_mesh", 2, Path(d) / "c4", device="cuda", timeout=600,
+            params={"n": C4_GENOME, "m": C4_M, "w_local": W // 2, "block": B,
+                    "max_span": L},
+            arrays={"start": batch.start, "end": batch.end})
+        wall = time.perf_counter() - t0
+        if any(rcs):
+            raise AssertionError(f"2-rank blocked mesh failed: {rcs}\n"
+                                 + "\n".join(t[-3000:] for t in logs))
+        for r in res:
+            if not np.array_equal(r["sel"], sel4):
+                raise AssertionError("2-rank blocked mesh sel differs from 1 rank's")
+        st = [json.loads(str(r["stats"])) for r in res]
+        out["blocked_mesh_config4_2_ranks"] = {
+            "ranks": 2, "backend": "gloo", "W_local": W // 2, "wall_s": wall,
+            "rank_s": [float(r["seconds"]) for r in res], "per_rank": st}
+        log(f"  (b) blocked mesh, 2 ranks x {W // 2} windows over gloo on one card, "
+            f"config-4: sel == 1 rank's; {st[0]['rounds']} rounds; rank 0 sent "
+            f"{st[0]['messages']} messages ({st[0]['wire_bytes']} bytes), "
+            f"{st[0]['host_copy_bytes']} bytes across PCIe, {st[0]['host_syncs']} host "
+            f"syncs; ranks' job time (cold: pack, solve, gather) "
+            + ", ".join(f"{float(r['seconds']):.3f}" for r in res)
+            + f" s; {wall:.1f} s with process start  [{report}]")
+    del batch, sel4
+
+    # (c) the CLI, BAM -> BAM
+    pairs, n, m = SHARDED_CLI
+    with tempfile.TemporaryDirectory() as d:
+        src = Path(d) / "in.bam"
+        t0 = time.perf_counter()
+        indexed_bam(src, bounded_pairs(pairs, n, MAX_INSERT))
+        log(f"  (c) {2 * pairs} reads over {n} bases (pairs within {MAX_INSERT} bases), "
+            f"BAM and BAI written in {time.perf_counter() - t0:.1f} s")
+        flags = ["-l", "0", "-q", "0"]
+        runs = [("mcp-cpu", ["-a", "mcp-cpu"], 1), ("mcp-cuda", ["-a", "mcp-cuda"], 1),
+                ("mcp-cuda --sharded", ["-a", "mcp-cuda", "--sharded"], 1),
+                ("mcp-cuda --sharded, 2 processes", ["-a", "mcp-cuda", "--sharded"], 2)]
+        cli = {}
+        for i, (name, a, procs) in enumerate(runs):
+            dst = Path(d) / f"out{i}.bam"
+            wall, laps = cli_ranks([str(src), str(m), "-o", str(dst), *a, *flags], procs)
+            same = same_records(dst, Path(d) / "out0.bam") if i else "file"
+            if i >= 2:
+                same = same_records(dst, Path(d) / "out1.bam") + "/" + same
+            cli[name] = {"wall_s": wall, "laps": laps, "equal": same}
+            log(f"  (c) CLI {' '.join(a)} x {procs}: {wall:.3f} s (processes, incl. "
+                f"start-up); equal to mcp-cuda/mcp-cpu: {same}"
+                + "".join(f"; rank {r} laps " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in lp["laps_s"].items())
+                    + f" s ({lp['engine']}, {lp.get('rounds')} rounds)"
+                    for r, lp in sorted(laps.items()))
+                + f"  [{report}]")
+        out["cli_mcp"] = {"reads": 2 * pairs, "n": n, "M": m, "runs": cli}
+
+        qp, qn, qm = SHARDED_QMCP
+        src = Path(d) / "q.bam"
+        indexed_bam(src, bounded_pairs(qp, qn, MAX_INSERT))
+        cli = {}
+        for i, procs in enumerate((1, 2)):
+            dst = Path(d) / f"q{i}.bam"
+            wall, laps = cli_ranks([str(src), str(qm), "-o", str(dst), "-a", "qmcp-cuda",
+                                    "--sharded", *flags], procs)
+            same = same_records(dst, Path(d) / "q0.bam") if i else "file"
+            cli[f"qmcp-cuda --sharded x {procs}"] = {"wall_s": wall, "laps": laps,
+                                                     "equal": same}
+            log(f"  (c) CLI -a qmcp-cuda --sharded x {procs} ({2 * qp} reads over {qn} "
+                f"bases, M={qm}): {wall:.3f} s; equal to 1 process: {same}"
+                + "".join(f"; rank {r} laps " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in lp["laps_s"].items()) + " s"
+                    for r, lp in sorted(laps.items()))
+                + f"  [{report}]")
+        out["cli_qmcp"] = {"reads": 2 * qp, "n": qn, "M": qm, "runs": cli}
+    return out, kernel_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
@@ -2213,6 +2545,13 @@ def main(argv=None) -> int:
     phase("[16] quasi-mcp-flow-cuda (push-relabel, torch ops on the card): the "
           "3,000-base cut, config-1, 1M pairs over 30 kb")
     phase_push_relabel(dev, report)
+    torch.cuda.empty_cache()
+    phase("[17] the mesh engines and --sharded on the card")
+    sharded, mesh_launches = phase_sharded(dev, report)
+    dense["sharded_launches"] = mesh_launches["dense_sweep"]
+    next(e for e in entries if e["name"] == "blocked_sweep")["sharded_launches"] = (
+        mesh_launches["blocked_sweep"])
+    print(json.dumps({"sharded": sharded}))
     phase(None)
     log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -23,9 +23,12 @@ Layer map:
                 262,144 bases), ``QmcpDeviceSweepSolver``, the blocked
                 solver, ``solve_batch``, the host solvers and the registry
                 (``*-cpu``, ``*-cuda``)
-- ``parallel``  ``WindowedMcpSolver``: genome windows as kernel A's rows
+- ``parallel``  ``WindowedMcpSolver``: genome windows as kernel A's rows;
+                the mesh engines over ``torch.distributed`` ranks and the
+                host-sharded pipeline (``--sharded``)
 - ``cli``       ``python -m genome_downsampler_tpu_torch IN.bam M ...``
 - ``entry``     the single-device entry point (the sweep at a small size)
+                and the multi-rank dry run
 
 This package never imports ``jax``.
 """

@@ -12,12 +12,17 @@ package's registry (``*-cuda`` names). ``--windows N`` (N > 1) runs
 ``WindowedMcpSolver`` on the card and is accepted only with ``mcp-cuda`` /
 ``quasi-mcp-cuda``. ``--profile-dir DIR`` writes a ``torch.profiler``
 trace of the solve to ``DIR/trace.json`` (``utils.profiling``).
-``--sharded`` is not ported yet and is refused.
+``--sharded`` runs the host-sharded pipeline (``parallel.sharded_io``) as
+one rank of the ``torch.distributed`` job that the GD_* environment
+describes (``parallel.launch``), with the JAX CLI's checks; ``*-cuda``
+names run its mesh on the card (and raise without one), ``mcp-cpu`` and
+``quasi-mcp-cpu`` on the CPU through the kernels' plain twins.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 from pathlib import Path
@@ -76,8 +81,11 @@ def build_parser(registry) -> argparse.ArgumentParser:
                         "quasi-mcp-cuda only; the result stays bit-identical "
                         "to one window).")
     p.add_argument("--sharded", action="store_true",
-                   help="Host-sharded multi-process pipeline (not ported "
-                        "yet; refused).")
+                   help="Host-sharded multi-process pipeline: one rank of "
+                        "the torch.distributed job set by GD_COORDINATOR / "
+                        "GD_NUM_PROCESSES / GD_PROCESS_ID (one rank when "
+                        "unset); *-cuda names on the card, mcp-cpu and "
+                        "quasi-mcp-cpu on the CPU.")
     p.add_argument("--halo", type=int, default=2000,
                    help="Sharded-mode window overlap (with --sharded).")
     return p
@@ -127,11 +135,59 @@ def run_test(args, registry) -> int:
     return 0
 
 
+def run_sharded_cli(args, input_path: Path, output_path: Path, config) -> int:
+    """The ``--sharded`` branch of the JAX CLI: checks, then this process's
+    rank of ``run_sharded``."""
+    import torch.distributed as dist
+
+    from genome_downsampler_tpu_torch.device import resolve_device
+    from genome_downsampler_tpu_torch.parallel.launch import initialize_distributed
+    from genome_downsampler_tpu_torch.parallel.sharded_io import (
+        QUALITY_ALGOS,
+        run_sharded,
+    )
+
+    if args.preprocessing_out:
+        _log.error("--preprocessing-out is not supported with --sharded")
+        return 1
+    if args.algorithm not in (
+        "quasi-mcp-cpu", "mcp-cpu", "mcp-cuda", "quasi-mcp-cuda",
+        "mcp-cuda-blocked", *QUALITY_ALGOS,
+    ):
+        _log.error(
+            "algorithm %r is not supported in sharded mode (MCP names "
+            "run the mesh sweep; QMCP names run the distributed-parse "
+            "exact MCMF)", args.algorithm)
+        return 1
+    if args.windows > 1:
+        _log.error("--windows is implied by --sharded; do not combine")
+        return 1
+    # the port's device rule: a -cuda name (mcp-cuda-blocked too) runs on
+    # the card or raises
+    device = resolve_device("cuda" if "-cuda" in args.algorithm else "cpu")
+    created = initialize_distributed(device=device)
+    try:
+        rank, size = dist.get_rank(), dist.get_world_size()
+        stats: dict = {}
+        start = time.perf_counter()
+        merged = run_sharded(
+            input_path, args.max_coverage, config,
+            output_path if rank == 0 else None,
+            halo=args.halo, algorithm=args.algorithm, device=device,
+            stats=stats,
+        )
+        _log.info(
+            "sharded solve+write: %d reads in %.3f s (rank %d/%d)",
+            len(merged), time.perf_counter() - start, rank, size,
+        )
+        _log.info("sharded laps (rank %d): %s", rank, json.dumps(stats))
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return 0
+
+
 def run_downsample(args, registry) -> int:
-    if args.sharded:
-        _log.error("%s is not yet ported to the CUDA package "
-                   "(ROADMAP.md, queue A)", "--sharded")
-        return 2
     if not args.input or not args.max_coverage:
         _log.error("INPUT_FILEPATH and MAX_COVERAGE must be specified")
         return 1
@@ -159,6 +215,8 @@ def run_downsample(args, registry) -> int:
         bed_path=args.bed,
         tsv_path=args.tsv,
     )
+    if args.sharded:
+        return run_sharded_cli(args, input_path, output_path, config)
     # built before the input is read: a *-cuda name without a card raises
     if args.windows > 1:
         if args.algorithm not in ("mcp-cuda", "quasi-mcp-cuda"):

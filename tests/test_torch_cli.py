@@ -1,6 +1,7 @@
 """The port's CLI against the JAX package's CLI, BAM -> BAM."""
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -90,16 +91,61 @@ def test_cli_refuses_unported_flags(bam, tmp_path, flags, monkeypatch):
         assert trace["traceEvents"]
         assert out.read_bytes() == _run(main, bam, tmp_path / "plain.bam", "mcp-cpu")
         return
+    if flags[0] == "--sharded":
+        # ported: one rank of the sharded pipeline, mcp-cpu's mesh on the
+        # CPU through the twins, the same records as the unsharded run
+        assert rc == 0 and not errors
+        assert out.read_bytes() == _run(main, bam, tmp_path / "plain.bam", "mcp-cpu")
+        return
     assert rc != 0 and not out.exists()
-    if flags[0] == "--windows":
-        # ported: refused only beside a name that would ignore it, with the
-        # JAX CLI's message (its accelerator names are the *-cuda ones here)
-        assert errors == ["--windows is only supported with "
-                          "mcp-cuda/quasi-mcp-cuda; algorithm 'mcp-cpu' would "
-                          "silently ignore it"]
-    else:
-        assert errors == [f"{flags[0]} is not yet ported to the CUDA package "
-                          "(ROADMAP.md, queue A)"]
+    # ported: refused only beside a name that would ignore it, with the
+    # JAX CLI's message (its accelerator names are the *-cuda ones here)
+    assert errors == ["--windows is only supported with "
+                      "mcp-cuda/quasi-mcp-cuda; algorithm 'mcp-cpu' would "
+                      "silently ignore it"]
+
+
+@pytest.mark.parametrize(
+    "algo,flags,message",
+    [("mcp-cpu", ["--windows", "2"],
+      "--windows is implied by --sharded; do not combine"),
+     ("mcp-cpu", ["-p", "filtered.bam"],
+      "--preprocessing-out is not supported with --sharded"),
+     ("mcp-cpu-py", [],
+      "algorithm 'mcp-cpu-py' is not supported in sharded mode (MCP names run "
+      "the mesh sweep; QMCP names run the distributed-parse exact MCMF)")],
+)
+def test_cli_sharded_refusals_match_jax_cli(bam, tmp_path, algo, flags, message,
+                                            monkeypatch):
+    """The JAX CLI's checks of --sharded, with its messages; neither CLI
+    writes anything."""
+    jax_cli_main = sys.modules[jax_main.__module__]
+    errors, jax_errors = [], []
+    monkeypatch.setattr(cli_main._log, "error", lambda fmt, *a: errors.append(fmt % a))
+    monkeypatch.setattr(jax_cli_main._log, "error",
+                        lambda fmt, *a: jax_errors.append(fmt % a))
+    flags = [str(tmp_path / f) if f.endswith(".bam") else f for f in flags]
+    out, jax_out = tmp_path / "out.bam", tmp_path / "jax.bam"
+    args = [str(bam), "15", *FILTERS, "--sharded", "-a", algo, *flags]
+    assert main([*args, "-o", str(out)]) == 1 and errors == [message]
+    assert jax_main([*args, "-o", str(jax_out)]) == 1 and jax_errors == [message]
+    assert not out.exists() and not jax_out.exists()
+
+
+@pytest.mark.parametrize("algo", ["mcp-cuda", "mcp-cuda-blocked", "qmcp-cuda"])
+def test_cli_sharded_cuda_name_raises_without_a_card(bam, tmp_path, algo, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out.bam"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([str(bam), "15", "-o", str(out), "-a", algo, *FILTERS, "--sharded"])
+    assert not out.exists() and not torch.distributed.is_initialized()
+
+
+def test_cli_sharded_qmcp_records_equal_unsharded(bam, tmp_path):
+    ref = _run(main, bam, tmp_path / "plain.bam", "qmcp-cpu")
+    assert main([str(bam), "15", "-o", str(tmp_path / "sh.bam"), "-a", "qmcp-cpu",
+                 *FILTERS, "--sharded"]) == 0
+    assert (tmp_path / "sh.bam").read_bytes() == ref
 
 
 def test_cli_windows_without_a_card_raises(bam, tmp_path, monkeypatch):

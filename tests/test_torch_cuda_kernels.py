@@ -966,3 +966,48 @@ def test_push_relabel_cuda_equals_cpu_at_the_3000_base_cut(cuda):
     keys = ("supersteps", "bodies", "global_relabels", "closure_rounds", "host_syncs")
     assert ({k: on_card.last_stats[k] for k in keys}
             == {k: on_cpu.last_stats[k] for k in keys})
+
+
+def test_mesh_engines_over_nccl_at_world_size_one(cuda):
+    """The blocked mesh at world size 1 over NCCL (its carries and flags on
+    the card) equals ``blocked_windowed_sweep``'s sel at a config-4-shaped
+    input (300x over 100 kb, M=50; W=8, B=128, L=256), one kernel B pass a
+    round; the dense mesh equals kernel A on the whole genome in one
+    launch; the dry run passes at L=32."""
+    import torch.distributed as dist
+
+    from genome_downsampler_tpu_torch.entry import dryrun_multichip
+    from genome_downsampler_tpu_torch.parallel.launch import (
+        global_window_mesh,
+        initialize_distributed,
+    )
+    from genome_downsampler_tpu_torch.parallel.mesh import solve_on_mesh
+    from genome_downsampler_tpu_torch.parallel.sharded_io import solve_blocked_on_mesh
+    from genome_downsampler_tpu_torch.solvers.device_sweep import _dense_inputs
+
+    n, m, W, B, L = 100_000, 50, 8, 128, 256
+    batch = rand_reads_uniform(np.random.default_rng(7), 100_000, n, 150)
+    start, end = np.asarray(batch.start, np.int64), np.asarray(batch.end, np.int64)
+    packed, counts, win, n_pad, _ = _native.pack_blocked(start, end, n, W, B, L)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    t = torch.tensor(_native.capped_target(start, end, n_pad, m).reshape(W, win),
+                     device=cuda)
+    ref, _ = blocked.blocked_windowed_sweep(p, c, t, W, B, L)
+    target, rows = _dense_inputs(batch, n, m, L, cuda)
+    z = torch.zeros((1, L), dtype=torch.int32, device=cuda)
+    ref_dense = sweep.dense_sweep_counts(rows, target, z, z, L)[0][0]
+    assert initialize_distributed(num_processes=1, process_id=0, device=cuda)
+    try:
+        mesh = global_window_mesh(cuda)
+        assert mesh.backend == "nccl" and mesh.wire.type == "cuda"
+        b0, a0 = blocked.blocked_sweep_pass.launches, sweep.dense_sweep_counts.launches
+        stats = {}
+        sel = solve_blocked_on_mesh(mesh, start, end, n, m, W, B, L, stats=stats)
+        assert blocked.blocked_sweep_pass.launches - b0 == stats["rounds"] <= W
+        np.testing.assert_array_equal(sel, ref.cpu().numpy())
+        dense = solve_on_mesh(mesh, start, end, n, m, L)
+        assert sweep.dense_sweep_counts.launches - a0 == 1
+        np.testing.assert_array_equal(dense, ref_dense.cpu().numpy())
+        assert dryrun_multichip(cuda)["max_span"] == 32
+    finally:
+        dist.destroy_process_group()

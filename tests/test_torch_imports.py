@@ -31,7 +31,12 @@ required = {
     "genome_downsampler_tpu_torch.ops.ablate",
     "genome_downsampler_tpu_torch.ops.sweep",
     "genome_downsampler_tpu_torch.ops.variants",
+    "genome_downsampler_tpu_torch.parallel.blocked_mesh",
+    "genome_downsampler_tpu_torch.parallel.launch",
+    "genome_downsampler_tpu_torch.parallel.mesh",
+    "genome_downsampler_tpu_torch.parallel.sharded_io",
     "genome_downsampler_tpu_torch.parallel.windows",
+    "genome_downsampler_tpu_torch.testing.mesh_worker",
     "genome_downsampler_tpu_torch.scripts.bench_kernel_ablate",
     "genome_downsampler_tpu_torch.scripts.kernel_variants",
     "genome_downsampler_tpu_torch.solvers.batched",
