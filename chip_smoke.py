@@ -79,15 +79,22 @@ package. Phases, each of which raises on failure:
     ``mcp-cuda`` solve and one warm config-1 ``qmcp-cuda`` solve: the
     device's busy share of the traced window and device time per kernel;
     the traces under ``build/profile/``.
-16. ``quasi-mcp-flow-cuda`` (push-relabel max-flow as torch ops on the
-    card; no hand kernel yet) through the registry, warm, beside
-    ``mcp-cpu``: at the 3,000-base cut and config-1 the read set and the
-    supersteps equal the same solver's run on the CPU; at the reference's
-    largest workload (1M pairs over 30,000 bases, M=1000) coverage valid
-    and fewer reads than given; per cell the supersteps, global relabels,
-    closure rounds and host syncs, ms a superstep beside its bound (28
-    bytes an arc: the table's five int32 columns and two label gathers)
-    and the laps; the device's busy share of one traced cut solve
+16. ``quasi-mcp-flow-cuda`` (push-relabel max-flow: one launch of the
+    push-relabel kernel a solve, ``ops/csrc/push_relabel.cu``) through the
+    registry, warm, beside ``mcp-cpu``, at the 3,000-base cut, config-1 and
+    the reference's largest workload (1M pairs over 30,000 bases, M=1000):
+    one kernel launch and at most 2 host reads a solve, coverage valid and
+    fewer reads than given; on the same inputs the kernel's final flows,
+    excess, labels, step, excess left, global relabels and closure rounds
+    equal to its twin (the torch program of ``solvers/push_relabel.py``) on
+    the card, its read set to the solve's, and at the cut the solve's read
+    set and counts to the same solver on the CPU; the kernel timed (CUDA
+    events) beside its bound and the twin's time; us a closure round and a
+    superstep from the kernel's own global-timer laps beside their bounds
+    (``FLOW_*``: a round d read and written once and each read's ends and
+    flow once; a superstep the arc table's columns and two label gathers
+    once an arc the walks need, which the kernel counts, and each node's
+    excess and label); the device's busy share of one traced cut solve
     (``build/profile/flow/``); all also as one ``{"push_relabel": ...}``
     JSON line;
 17. the mesh engines and ``--sharded`` (``parallel/``, over
@@ -249,12 +256,16 @@ PROFILE_DIR = ROOT / "build" / "profile"
 # coverage_tester's biggest; the JAX suite's test_reference_largest_workload_scale)
 FLOW_LARGEST = (1_000_000, 30_000, 1000)
 # bytes a superstep moves at the least: one read of the arc table's five
-# int32 columns and the two label gathers, 4 bytes each, per arc; a round
+# int32 columns and the two label gathers, 4 bytes each, per arc the run's
+# walks need (the eligible nodes' arcs up to the one that spends the
+# excess, the relabelled nodes' segments: the kernel counts them), and
+# each line node's excess and label read and its label written; a round
 # of the distance closure: d read and written once (8 bytes a line node),
 # each read's start and end + 1 (int32) and its two residual flags (bool)
-# read once (10 bytes a padded read); the arc table's build: start and end
-# read once, the five int32 columns written once
-FLOW_BYTES_PER_ARC = 28
+# read once (10 bytes a read); the arc table's build: start and end read
+# once, the five int32 columns written once. Reads are the valid ones: the
+# padded reads' arcs are never residual
+FLOW_BYTES_PER_ARC, FLOW_STEP_BYTES_PER_NODE = 28, 12
 FLOW_ROUND_BYTES_PER_NODE, FLOW_ROUND_BYTES_PER_READ = 8, 10
 FLOW_TABLE_BYTES_PER_READ, FLOW_TABLE_BYTES_PER_ARC = 8, 20
 # phase 17: the blocked mesh's windows a rank and block at config-4 (one
@@ -291,7 +302,7 @@ def sweep_bound(codes, W, positions, L, extra_bytes):
 
 def launch_counts():
     """Each kernel's wrapper, which carries its launch count."""
-    from genome_downsampler_tpu_torch.ops import ablate, blocked, ssp, sweep, variants
+    from genome_downsampler_tpu_torch.ops import ablate, blocked, push_relabel, ssp, sweep, variants
 
     return {
         "dense_sweep": sweep.dense_sweep_counts,
@@ -302,6 +313,7 @@ def launch_counts():
         "variant_b": variants.sweep_variant_b,
         "ablate": ablate.blocked_ablate,
         "ssp": ssp.ssp_solve,
+        "push_relabel": push_relabel.flow_solve,
     }
 
 
@@ -525,7 +537,7 @@ def start_against_builds(paths):
 # for kernel C), spills and registers
 PTXAS_ENTRY = re.compile(
     r"Compiling entry function '[^']*?(blocked_sweep_wide|blocked_sweep|dense_sweep|blocked_select"
-    r"|sweep_variant|blocked_ablate|ssp)_kernel"
+    r"|sweep_variant|blocked_ablate|ssp|push_relabel)_kernel"
     r"(?:ILi(\d+)E(?:L[bi](\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
     r"loads.*?Used (\d+) registers", re.S)
 
@@ -718,6 +730,41 @@ def turns_ssp(dev, c4):
     return checks, timed
 
 
+def flow_cell_inputs(dev, pairs, n, m):
+    """A flow cell's batch and the push-relabel kernel's inputs on the
+    card, as quasi-mcp-flow-cuda builds them (reads padded to 4,096)."""
+    from genome_downsampler_tpu_torch.testing.flow_cases import flow_inputs
+
+    batch = uniform_batch(pairs, n)
+    return batch, flow_inputs(batch, m, 4096, dev)
+
+
+def turns_push_relabel(dev, c4):
+    """The push-relabel kernel's cells: the 3,000-base cut, config-1 and 1M
+    pairs over 30 kb, the six state arrays and (step, excess left, global
+    relabels, closure rounds) bit-equal on each; timed a round."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import build
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def run(lib, prep):
+        *state, scalars = pr.launch(lib, prep, 200_000, 25)
+        return [*state, scalars[:4]]
+
+    checks, timed = [], {}
+    for name, cell, reps in (("3,000-base cut", SSP_CUT, 5), ("config-1", C1, 3),
+                             ("1M pairs over 30 kb", FLOW_LARGEST, 3)):
+        prep = pr.prepare(*flow_cell_inputs(dev, *cell)[1], sms)
+        rounds = int(run(build.load_kernels(), prep)[-1][3])
+        go = lambda lib, p=prep: run(lib, p)  # noqa: E731
+        checks.append(go)
+        timed[name] = (go, rounds, reps, "round")
+    return checks, timed
+
+
 def turns_blocked_sweep_wide(dev, c4):
     """The wide path's cells: phase 3b's passes at L=1,024 and 4,096 and its
     deep stack, one full pass of each read set of phase 3c on its solve's
@@ -867,7 +914,8 @@ AGAINST_KERNELS = {"gd_blocked_ablate": ("blocked_ablate.cu", turns_blocked_abla
                                              turns_blocked_sweep_wide),
                    "gd_blocked_select": ("blocked_select.cu", turns_blocked_select),
                    "gd_sweep_variant": ("sweep_variants.cu", turns_sweep_variants),
-                   "gd_ssp_solve": ("ssp.cu", turns_ssp)}
+                   "gd_ssp_solve": ("ssp.cu", turns_ssp),
+                   "gd_push_relabel_solve": ("push_relabel.cu", turns_push_relabel)}
 # a kernel whose source defines more than one C entry: all of them
 AGAINST_ENTRIES = {"gd_sweep_variant": ("gd_sweep_variant_c", "gd_sweep_variant_b")}
 
@@ -1783,88 +1831,128 @@ def phase_profile(dev, report):
     return shares
 
 
+def flow_bound(reads, n, stats):
+    """The push-relabel kernel's bound on this run (``stats``: the solve's
+    counts): each closure round's and each superstep's bytes (``FLOW_*``)
+    once; returns ``(bound_ms, bound_by, round_ms, superstep_ms)``, the
+    last the mean over the run's supersteps."""
+    rounds, supersteps = stats["closure_rounds"], stats["supersteps"]
+    round_bytes = FLOW_ROUND_BYTES_PER_NODE * (n + 1) + FLOW_ROUND_BYTES_PER_READ * reads
+    step_bytes = (FLOW_BYTES_PER_ARC * (stats["arcs_discharged"] + stats["arcs_relabelled"])
+                  + FLOW_STEP_BYTES_PER_NODE * (n + 1) * supersteps)
+    return (*bound(0, rounds * round_bytes + step_bytes), bound(0, round_bytes)[0],
+            bound(0, step_bytes / max(supersteps, 1))[0])
+
+
 def phase_push_relabel(dev, report):
-    """quasi-mcp-flow-cuda through the registry, warm, beside mcp-cpu: at
-    the 3,000-base cut and config-1 the read set and the supersteps equal
-    the same solver's on the CPU; coverage valid at all three cells, the
-    selection smaller than the reads; no hand kernel launched (the solver
-    is torch ops on the card); the card's busy share of one traced cut
-    solve. Returns {cell: counts, times, bound}."""
+    """quasi-mcp-flow-cuda through the registry, warm, beside mcp-cpu, at
+    the 3,000-base cut, config-1 and 1M pairs over 30 kb: one push-relabel
+    kernel launch a solve, at most 2 host reads, coverage valid, the
+    selection smaller than the reads; on the same inputs the kernel equal to
+    its twin on the card (state, step, excess left, counts) and timed; at
+    the cut the solve equal to the CPU run; the card's busy share of one
+    traced cut solve. Returns the kernel's entry, the cells under
+    ``cells``."""
     import numpy as np
     import torch
 
-    from genome_downsampler_tpu_torch.solvers.push_relabel import QuasiMcpPushRelabelSolver
+    from genome_downsampler_tpu_torch.ops import build
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+    from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.solvers.push_relabel import (
+        QuasiMcpPushRelabelSolver,
+        push_relabel_run,
+    )
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
     from genome_downsampler_tpu_torch.utils.profiling import trace
 
     reg = default_registry()
     solver = reg.get("quasi-mcp-flow-cuda")
+    lib = build.load_kernels()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cut = uniform_batch(*SSP_CUT[:2])
-    solver.solve(SSP_CUT[2], cut)  # warm (torch ops: nothing compiles per size)
-    out = {}
-    for label, (pairs, n, m), hold in (("3,000-base cut", SSP_CUT, True),
-                                       ("config-1", C1, True),
-                                       ("1M pairs over 30 kb", FLOW_LARGEST, False)):
-        batch = uniform_batch(pairs, n)
+    solver.solve(SSP_CUT[2], cut)  # warm
+    out, errs = {}, []
+    for label, (pairs, n, m), reps in (("3,000-base cut", SSP_CUT, 5), ("config-1", C1, 3),
+                                       ("1M pairs over 30 kb", FLOW_LARGEST, 3)):
+        batch, args = flow_cell_inputs(dev, pairs, n, m)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sel = solver.solve(m, batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        expect_launches(read_launches())
+        launches = read_launches()
+        expect_launches(launches, "push_relabel")
         stats = solver.inner.last_stats
+        if launches["push_relabel"] != 1 or stats["engine"] != "cuda" or stats["host_syncs"] > 2:
+            raise AssertionError(f"{label}: {launches['push_relabel']} launches, engine "
+                                 f"{stats['engine']}, {stats['host_syncs']} host syncs")
         t0 = time.perf_counter()
         host = reg.get("mcp-cpu").solve(m, batch)
         host_s = time.perf_counter() - t0
         check_valid(dev, batch, sel, m)
         if not len(sel) < batch.n_reads:
             raise AssertionError(f"{label}: no downsampling ({len(sel)} of {batch.n_reads})")
+        # the kernel against its twin, both on the card, on the same inputs
+        st, left, counts = pr.flow_solve(*args)
+        torch.cuda.synchronize()
+        twin_stats = {}
+        t0 = time.perf_counter()
+        ref, steps, ref_left = push_relabel_run(*args, stats=twin_stats)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        errs.append(max_abs_err(list(st[:6]), list(ref[:6])))
+        keys = ("supersteps", "global_relabels", "closure_rounds")
+        got, want = [counts[k] for k in keys] + [left], [twin_stats[k] for k in keys] + [ref_left]
+        if got != want or int(st.step) != steps:
+            raise AssertionError(f"{label}: kernel (supersteps, relabels, rounds, left) {got} "
+                                 f"!= twin {want}")
+        twin_sel = np.flatnonzero(((ref.f_read > 0) & args[2]).cpu().numpy())
+        if not np.array_equal(sel, twin_sel):
+            raise AssertionError(f"{label}: read set differs from the twin's")
         cell = {"reads": batch.n_reads, "n": n, "M": m, "selected": len(sel),
-                "mcp_cpu_selected": len(host), "solve_s": dt, "mcp_cpu_s": host_s}
-        if hold:
+                "mcp_cpu_selected": len(host), "solve_s": dt, "mcp_cpu_s": host_s,
+                "twin_on_card_ms": plain_ms, "launches": launches["push_relabel"]}
+        if label == "3,000-base cut":
             cpu = QuasiMcpPushRelabelSolver("cpu")
             t0 = time.perf_counter()
             cpu_sel = cpu.solve(m, batch)
             cell["cpu_solve_s"] = time.perf_counter() - t0
-            if not np.array_equal(sel, cpu_sel):
-                raise AssertionError(f"{label}: read set differs from the CPU run "
-                                     f"({len(sel)} vs {len(cpu_sel)})")
-            if cpu.last_stats["supersteps"] != stats["supersteps"]:
-                raise AssertionError(f"{label}: {stats['supersteps']} supersteps, "
-                                     f"{cpu.last_stats['supersteps']} on the CPU")
-        pad = solver.inner.pad_multiple
-        r_pad = -(-batch.n_reads // pad) * pad
-        arcs = 2 * r_pad + 2 * n + 3 * (n + 1)
-        b_ms, b_by = bound(0, FLOW_BYTES_PER_ARC * arcs)
-        round_ms = bound(0, FLOW_ROUND_BYTES_PER_NODE * (n + 1)
-                         + FLOW_ROUND_BYTES_PER_READ * r_pad)[0]
-        table_ms = bound(0, FLOW_TABLE_BYTES_PER_READ * r_pad + FLOW_TABLE_BYTES_PER_ARC * arcs)[0]
+            if not np.array_equal(sel, cpu_sel) or any(
+                    cpu.last_stats[k] != stats[k] for k in keys):
+                raise AssertionError(f"{label}: read set or counts differ from the CPU run")
+        prep = pr.prepare(*args, sms)
+        ms = best_ms(lambda: pr.launch(lib, prep, 200_000, 25), dev, reps)[1]
+        rounds, supersteps = stats["closure_rounds"], stats["supersteps"]
+        b_ms, b_by, round_ms, step_ms = flow_bound(batch.n_reads, n, stats)
         laps = stats["laps_s"]
         cell.update({k: stats[k] for k in ("supersteps", "bodies", "global_relabels",
-                                           "closure_rounds", "host_syncs")})
-        cell.update(arcs=arcs, laps_s=laps,
-                    ms_per_superstep=1e3 * laps["supersteps"] / stats["bodies"],
-                    ms_per_closure_round=1e3 * laps["relabel"] / stats["closure_rounds"],
-                    bound_ms_per_superstep=b_ms, bound_by=b_by,
-                    bound_ms_per_closure_round=round_ms, arcs_lap_ms=1e3 * laps["arcs"],
-                    bound_ms_arc_table=table_ms)
+                                           "closure_rounds", "host_syncs", "closure_ns",
+                                           "superstep_ns", "closure_cycles",
+                                           "superstep_cycles", "arcs_discharged",
+                                           "arcs_relabelled")})
+        cell.update(arcs=2 * batch.n_reads + 2 * n + 3 * (n + 1), laps_s=laps, ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ctas=prep["G"],
+                    us_per_closure_round=stats["closure_ns"] / 1e3 / max(rounds, 1),
+                    us_per_superstep=stats["superstep_ns"] / 1e3 / max(supersteps, 1),
+                    bound_us_per_closure_round=1e3 * round_ms,
+                    bound_us_per_superstep=1e3 * step_ms)
         out[label] = cell
         log(f"  {label}: quasi-mcp-flow-cuda {len(sel)} of {batch.n_reads} reads "
-            f"(mcp-cpu {len(host)}), coverage valid"
-            + (", read set and supersteps equal to the CPU run "
-               f"({cell['cpu_solve_s']:.2f} s)" if hold else "")
-            + f"; {stats['supersteps']} supersteps ({stats['bodies']} run), "
-            f"{stats['global_relabels']} global relabels, {stats['closure_rounds']} "
-            f"closure rounds, {stats['host_syncs']} host syncs; warm solve {dt:.4f} s vs "
-            f"mcp-cpu {host_s:.4f} s; {cell['ms_per_superstep']:.4f} ms a superstep "
-            f"(bound {b_ms:.5f} ms, {b_by}, A={arcs}), "
-            f"{cell['ms_per_closure_round']:.4f} ms a closure round (bound {round_ms:.6f}); "
-            f"arcs lap {cell['arcs_lap_ms']:.3f} ms (the table's bound {table_ms:.5f})  "
-            f"[{report}]")
+            f"(mcp-cpu {len(host)}), coverage valid, one launch, {stats['host_syncs']} host "
+            f"sync(s); kernel == twin on the card (state, {supersteps} supersteps, "
+            f"{stats['global_relabels']} global relabels, {rounds} closure rounds)"
+            + (f", read set and counts equal to the CPU run ({cell['cpu_solve_s']:.2f} s)"
+               if "cpu_solve_s" in cell else "")
+            + f"; warm solve {dt:.4f} s vs mcp-cpu {host_s:.4f} s; kernel {ms:.3f} ms on "
+            f"{prep['G']} CTAs (bound {b_ms:.4f} ms, {b_by}), twin on the card "
+            f"{plain_ms:.1f} ms; {cell['us_per_closure_round']:.3f} us a closure round "
+            f"(bound {1e3 * round_ms:.5f}), {cell['us_per_superstep']:.3f} us a superstep "
+            f"(bound {1e3 * step_ms:.5f})  [{report}]")
         log(f"    laps: {json.dumps(laps)}")
+        del args, prep
     # where a solve's wall time goes: the card's busy share of one cut solve
-    # (a config-1 trace would hold about a million events)
     torch.cuda.synchronize()
     with trace(PROFILE_DIR / "flow") as prof:
         t0 = time.perf_counter()
@@ -1879,7 +1967,21 @@ def phase_push_relabel(dev, report):
         + ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in
                     sorted(per.items(), key=lambda kv: -kv[1])[:4]) + f"  [{report}]")
     log(json.dumps({"push_relabel": out}))
-    return out
+    c1 = out["config-1"]
+    return {
+        "name": "push_relabel", "route": "cuda",
+        "source": "genome_downsampler_tpu_torch/ops/csrc/push_relabel.cu",
+        "replaces": "genome_downsampler_tpu/solvers/push_relabel.py:191",
+        "also_replaces": "genome_downsampler_tpu/solvers/push_relabel.py:316",
+        "launches": c1["launches"], "max_abs_err": max(errs), "ms": c1["ms"],
+        "plain_ms": c1["plain_ms"], "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"],
+        "library_ms": None,
+        "timed_on": f"config-1: n={c1['n']}, {c1['reads']} reads, {c1['ctas']} CTAs, "
+                    f"{c1['closure_rounds']} closure rounds, {c1['supersteps']} supersteps",
+        "us_per_closure_round": c1["us_per_closure_round"],
+        "us_per_superstep": c1["us_per_superstep"],
+        "cells": out,
+    }
 
 
 def wide_cases(dev):
@@ -2428,7 +2530,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
                     help="time kernel A, B, B's wide path, C, the SSP kernel, the "
-                         "variants or the ablation (by the C entries OTHER.cu defines) "
+                         "push-relabel kernel, the variants or the ablation (by the C "
+                         "entries OTHER.cu defines) "
                          "against another version of its source, in turns "
                          "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)
@@ -2542,9 +2645,9 @@ def main(argv=None) -> int:
     phase("[15] profiler: device busy share of warm solves")
     ssp_entry["busy_share"] = phase_profile(dev, report)
     torch.cuda.empty_cache()
-    phase("[16] quasi-mcp-flow-cuda (push-relabel, torch ops on the card): the "
+    phase("[16] quasi-mcp-flow-cuda (the push-relabel kernel) vs its twin: the "
           "3,000-base cut, config-1, 1M pairs over 30 kb")
-    phase_push_relabel(dev, report)
+    entries.append(phase_push_relabel(dev, report))
     torch.cuda.empty_cache()
     phase("[17] the mesh engines and --sharded on the card")
     sharded, mesh_launches = phase_sharded(dev, report)

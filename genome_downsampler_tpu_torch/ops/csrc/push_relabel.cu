@@ -1,0 +1,790 @@
+// The push-relabel kernel: quasi-mcp-flow-cuda's whole solve (global
+// relabels and supersteps) in one cooperative launch, for NVIDIA Hopper
+// (sm_90a).
+//
+// Replaces two XLA device programs of genome_downsampler_tpu/solvers/
+// push_relabel.py: the distance closure `_dist_closure` (lines 191-236),
+// run twice by each global relabel (291-311), and the superstep `body`
+// (316-362), with the outer loop around them (364-376). The network, the
+// label-parity waves and the line-scan relabel are described there and in
+// ops/push_relabel.py; the torch program of solvers/push_relabel.py is
+// this kernel's plain twin, which it equals bit for bit (flows, excess,
+// labels, steps, global relabels, closure rounds).
+//
+// What bounds it on the H100. The work is sequential: thousands of closure
+// rounds (12,299 at config-1: the read-arc hops on a shortest path, per
+// closure) and hundreds of supersteps, each needing every node's state
+// from the step before. A round moves about 8 bytes a node and 10 a read,
+// a superstep 28 bytes an arc at most: microseconds of the card's memory
+// rate, far below what a chain of grid-wide dependencies costs. So what
+// binds is the barriers a round must pass and the L2 round trips between
+// them, as in ssp.cu. The torch program it replaces paid about 25 kernel
+// launches and one host read a round.
+//
+// What the design does about it. One persistent cooperative grid of
+// G = min(SMs, ceil((n + 1) / 256)) CTAs of 256 threads (ops/ssp.py:
+// grid_shape); CTA c owns the line nodes [c C, (c + 1) C), C =
+// ceil((n + 1) / G), and keeps their d, labels, excess and flags in shared
+// memory for the whole solve (in its own region of the workspace where
+// C is too large for shared memory: above about 850,000 nodes on 132 SMs).
+// The source S = n + 1 and sink T = n + 2 only receive flow; the last CTA
+// keeps their excess.
+//
+// A closure round is four grid barriers (grid_sync.cuh):
+//   1. each CTA publishes the min of its chunk's d(j) - j (the prefix-min
+//      scan's aggregate) and whether the last round lowered a node; it
+//      folds the CTAs before it into a carry and scans its chunk;
+//   2. the same for the reverse scan of d(j) + j, segmented where the
+//      chain carries no flow (the `_seg_min` combiner), folded from the
+//      CTAs after it;
+//   3. every CTA writes its d to snapshot 1; the forward hop
+//      d[start] <- min(d[start], d[end + 1] + 1) over residual reads reads
+//      only snapshot 1;
+//   4. snapshot 2 after the forward hop; the backward hop d[end + 1] <-
+//      min(d[end + 1], d[start] + 1) reads it (the Gauss-Seidel order of
+//      the twin: the round counts depend on it).
+// Both hops are tail-owned: each read's forward arc belongs to the CTA
+// owning its start, its backward arc to the CTA owning end + 1, so each
+// node takes the min over its own arcs (atomicMin in shared memory, which
+// does not depend on order) and no global atomics are needed. At each
+// global relabel a CTA compacts its reads into the residual ones of each
+// direction (the flags do not change during the two closures). The stop
+// test, any(d < d0), rides on the next round's first barrier.
+//
+// A superstep is two grid barriers. Each eligible line node (excess > 0,
+// label parity == step parity) is walked by one warp along its arc segment
+// (the tail-sorted table, 32 arcs a step): residuals through the arc's
+// kind and slot, head labels from the pre-wave buffer, an int64 inclusive
+// prefix of what the admissible arcs want, each arc taking min(remaining,
+// want) exactly as the twin's segmented exclusive prefix clipped to the
+// excess; the walk stops when the excess is spent. Flow writes need no
+// atomics: an arc pushes only from label l + 1 to l and only nodes of one
+// label parity push in a wave, so at most one direction of any flow slot
+// pushes, from its one tail, and no node reads a slot's residual that
+// another node writes in the same wave (the label test comes first, and
+// fails for the reverse arc of a pushing arc). What reaches a head goes by
+// an integer atomicAdd into `in`, whose sums do not depend on order. After
+// barrier 1 each owner applies excess -= out - in and relabels eligible
+// nodes that pushed nothing to min(1 + min label over post-wave residual
+// arcs, 2 (n + 3)), reading head labels from the pre-wave buffer and
+// writing the next buffer (other CTAs still read the old one); barrier 2
+// publishes the new labels and whether any node is still active, and the
+// buffers swap. `step` advances once a superstep; no-op bodies never run.
+//
+// The loop: while a node is active and step < max_supersteps, one global
+// relabel (both closures, labels dT | n + 3 + dS | 2 (n + 3)), then
+// supersteps while active and step < min(step + relabel_every,
+// max_supersteps). CTA 0 counts the global-timer nanoseconds and clock64
+// cycles inside global relabels and inside supersteps; every warp counts
+// the arcs its walks read (a superstep's bytes depend on them).
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+#include "grid_sync.cuh"
+
+namespace {
+
+using gd::grid_sync;
+using gd::ldcg;
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int32_t BIG = 1 << 30;
+constexpr int32_t kNone = INT_MAX;  // identity of the min scans
+// shared int32 arrays of C entries each: d, dold, dT, flag, lab, ex, out,
+// elig, list
+constexpr int kNodeArrays = 9;
+
+__device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// prefix (pf, pv) then (f, v): the segmented min of `_seg_min`
+__device__ __forceinline__ void seg_combine(int pf, int pv, int& f, int& v) {
+  if (!f) v = min(pv, v);
+  f |= pf;
+}
+
+struct Shared {
+  int wv[kWarps];  // each warp's total / prefix (scans, reductions)
+  int wf[kWarps];
+  long long wl[kWarps];
+  int cnt, cntF, cntB;
+  unsigned bar_target;  // thread 0's count of grid barrier arrivals
+};
+
+// block-wide reductions; every thread gets the result
+__device__ int block_min(int v, Shared& sh) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
+  if ((threadIdx.x & 31) == 0) sh.wv[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = sh.wv[0];
+  for (int w = 1; w < kWarps; ++w) v = min(v, sh.wv[w]);
+  __syncthreads();
+  return v;
+}
+
+__device__ long long block_sum(long long v, Shared& sh) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  if ((threadIdx.x & 31) == 0) sh.wl[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = 0;
+  for (int w = 0; w < kWarps; ++w) v += sh.wl[w];
+  __syncthreads();
+  return v;
+}
+
+// Exclusive min over the threads' values, in thread order; `tot` gets the
+// min of all. The identity is kNone.
+__device__ int block_min_excl(int v, int& tot, Shared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int w = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int p = __shfl_up_sync(kFull, w, o);
+    if (lane >= o) w = min(w, p);
+  }
+  if (lane == 31) sh.wv[warp] = w;
+  const int pe = __shfl_up_sync(kFull, w, 1);
+  __syncthreads();
+  int x = kNone;
+  tot = kNone;
+  for (int q = 0; q < kWarps; ++q) {
+    if (q == warp) x = tot;
+    tot = min(tot, sh.wv[q]);
+  }
+  __syncthreads();
+  return lane > 0 ? min(x, pe) : x;
+}
+
+// Exclusive segmented scan over the threads' aggregates (f, v), in thread
+// order: (ef, ev) the fold of the threads before this one, (tf, tv) the
+// fold of all. The identity is (0, kNone).
+__device__ void block_seg_excl(int f, int v, int& ef, int& ev, int& tf, int& tv, Shared& sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int wf = f, wv = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int pf = __shfl_up_sync(kFull, wf, o);
+    const int pv = __shfl_up_sync(kFull, wv, o);
+    if (lane >= o) seg_combine(pf, pv, wf, wv);
+  }
+  if (lane == 31) {
+    sh.wf[warp] = wf;
+    sh.wv[warp] = wv;
+  }
+  int pf = __shfl_up_sync(kFull, wf, 1);
+  int pv = __shfl_up_sync(kFull, wv, 1);
+  __syncthreads();
+  int xf = 0, xv = kNone;
+  for (int w = 0; w < kWarps; ++w) {
+    if (w == warp) {
+      ef = xf;
+      ev = xv;
+    }
+    int yf = sh.wf[w], yv = sh.wv[w];
+    seg_combine(xf, xv, yf, yv);
+    xf = yf;
+    xv = yv;
+  }
+  tf = xf;
+  tv = xv;
+  if (lane > 0) {
+    seg_combine(ef, ev, pf, pv);
+    ef = pf;
+    ev = pv;
+  }
+  __syncthreads();
+}
+
+// the static tables (ops/push_relabel.py: kernel_arc_table, hop_tables)
+struct Net {
+  // the tail-sorted arcs: (head, slot << 3 | kind); line node v's segment
+  // is [off[v], off[v + 1])
+  const int2* __restrict__ arcs;
+  const int32_t* __restrict__ off;
+  // the valid reads by start and by end + 1: (tail, other end, read, 0);
+  // CTA c's share is [range[c], range[c + 1])
+  const int4* __restrict__ hopF;
+  const int32_t* __restrict__ rangeF;
+  const int4* __restrict__ hopB;
+  const int32_t* __restrict__ rangeB;
+  const int32_t* __restrict__ cap_src;  // int32[n + 1]
+  const int32_t* __restrict__ cap_snk;  // int32[n + 1]
+  int n, R;
+};
+
+// the solve's state (outputs, written in place) and the workspace
+// (ops/push_relabel.py: _ws_words); not restrict: CTAs share them
+struct Glob {
+  int32_t *f_read, *f_chain, *f_src, *f_snk, *excess, *labA;
+  unsigned* bar;
+  // per-CTA partials, one array each so that no CTA overwrites one that
+  // another may still read
+  int32_t *aggA, *aggEf, *aggEv, *chg, *act;
+  long long* left;
+  int32_t *labB, *in, *snap1, *snap2;
+  int2 *cf, *cb;  // the residual reads each CTA compacts at a global relabel
+};
+
+// the CTA's line nodes; node arrays in shared memory
+struct Chunk {
+  int lo, cl, K;  // first node, nodes, items a thread holds in the scans
+  int32_t *d, *dold, *dT, *flag, *lab, *ex, *out, *elig, *list;
+};
+
+// ---- the distance closure ----
+
+__device__ __forceinline__ int32_t down_key(const Chunk& ch, int i) {
+  return ch.d[i] >= BIG ? BIG : ch.d[i] - (ch.lo + i);
+}
+__device__ __forceinline__ int32_t up_key(const Chunk& ch, int i) {
+  return ch.d[i] >= BIG ? BIG : ch.d[i] + (ch.lo + i);
+}
+
+// this thread's min of d(j) - j over its nodes [tK, tK + K)
+__device__ int down_items(const Chunk& ch) {
+  int m = kNone;
+  for (int j = 0; j < ch.K; ++j) {
+    const int i = threadIdx.x * ch.K + j;
+    if (i >= ch.cl) break;
+    m = min(m, down_key(ch, i));
+  }
+  return m;
+}
+
+// downward chain arcs: d(i) <= min_{j <= i} d(j) + (i - j); `run` the min
+// over the nodes before this thread's first, carry included
+__device__ void closure_down(const Chunk& ch, int run) {
+  for (int j = 0; j < ch.K; ++j) {
+    const int i = threadIdx.x * ch.K + j;
+    if (i >= ch.cl) break;
+    run = min(run, down_key(ch, i));
+    ch.d[i] = min(ch.d[i], run >= BIG ? BIG : run + ch.lo + i);
+  }
+}
+
+// The reverse scan runs over the chunk from its last node down: scan item
+// q is node cl - 1 - q. A segment starts (in scan order) at every node
+// whose upward chain arc has no residual (flag). This thread's (flag, min)
+// fold of its items:
+__device__ void up_items(const Chunk& ch, int& f, int& v) {
+  f = 0;
+  v = kNone;
+  for (int j = 0; j < ch.K; ++j) {
+    const int q = threadIdx.x * ch.K + j;
+    if (q >= ch.cl) break;
+    const int i = ch.cl - 1 - q;
+    int fi = ch.flag[i], vi = up_key(ch, i);
+    seg_combine(f, v, fi, vi);
+    f = fi;
+    v = vi;
+  }
+}
+
+// upward arcs within positive-chain-flow runs: d(i) <= min_{j >= i in run}
+// d(j) + (j - i); (ef, ev) the fold before this thread's first item
+__device__ void closure_up(const Chunk& ch, int ef, int ev) {
+  for (int j = 0; j < ch.K; ++j) {
+    const int q = threadIdx.x * ch.K + j;
+    if (q >= ch.cl) break;
+    const int i = ch.cl - 1 - q;
+    int fi = ch.flag[i], vi = up_key(ch, i);
+    seg_combine(ef, ev, fi, vi);
+    ef = fi;
+    ev = vi;
+    // the twin's quirk kept: a run that reaches nothing gives BIG - i
+    ch.d[i] = min(ch.d[i], (ev >= BIG ? BIG : ev) - (ch.lo + i));
+  }
+}
+
+// one hop: every compacted arc (tail in this chunk, other end) lowers
+// d[tail] to the snapshot's d[other] + 1
+__device__ void hop(const Chunk& ch, const int2* tab, int cnt, const int32_t* snap) {
+  for (int j = threadIdx.x; j < cnt; j += kThreads) {
+    const int2 e = __ldcg(tab + j);
+    const int32_t x = ldcg(snap + e.y);
+    if (x < BIG) atomicMin(&ch.d[e.x], x + 1);
+  }
+}
+
+// each CTA's d into the snapshot `buf`, then the barrier
+__device__ void snapshot(const Chunk& ch, int32_t* buf, unsigned* bar, Shared& sh) {
+  for (int i = threadIdx.x; i < ch.cl; i += kThreads) buf[ch.lo + i] = ch.d[i];
+  grid_sync(bar, sh.bar_target);
+}
+
+// The fixpoint from the seed in ch.d (the twin's dist_closure): one closure,
+// then rounds of (closure, forward hop, backward hop) until no node drops.
+// Returns the rounds.
+__device__ int closure(const Chunk& ch, const Glob& g, Shared& sh, int cntF, int cntB,
+                       const int2* cf, const int2* cb) {
+  const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x;
+  int pass = 0, my_chg = 0;
+  for (;;) {
+    for (int i = tid; i < ch.cl; i += kThreads) ch.dold[i] = ch.d[i];
+    __syncthreads();
+    // 1: the prefix scan's chunk aggregates and the last round's flags
+    int tot;
+    const int ex_down = block_min_excl(down_items(ch), tot, sh);
+    if (tid == 0) {
+      g.aggA[c] = tot;
+      g.chg[c] = my_chg;
+    }
+    grid_sync(g.bar, sh.bar_target);
+    int carry = kNone, any = 0;
+    if (tid < G) {
+      any = ldcg(g.chg + tid);
+      if (tid < c) carry = ldcg(g.aggA + tid);
+    }
+    any = __syncthreads_or(any);
+    carry = block_min(carry, sh);
+    if (pass >= 2 && !any) break;
+    closure_down(ch, min(carry, ex_down));
+    __syncthreads();
+    // 2: the reverse scan, segmented at zero chain flow, carried from the
+    // CTAs after this one (the last CTA first)
+    int uf, uv, ef, ev, tf, tv;
+    up_items(ch, uf, uv);
+    block_seg_excl(uf, uv, ef, ev, tf, tv, sh);
+    if (tid == 0) {
+      g.aggEf[c] = tf;
+      g.aggEv[c] = tv;
+    }
+    grid_sync(g.bar, sh.bar_target);
+    int pf = 0, pv = kNone;
+    if (tid < G - 1 - c) {
+      pf = ldcg(g.aggEf + (G - 1 - tid));
+      pv = ldcg(g.aggEv + (G - 1 - tid));
+    }
+    int xf, xv, cf_, cv;
+    block_seg_excl(pf, pv, xf, xv, cf_, cv, sh);
+    seg_combine(cf_, cv, ef, ev);
+    closure_up(ch, ef, ev);
+    __syncthreads();
+    if (pass == 0) {  // the closure before the first round
+      pass = 1;
+      continue;
+    }
+    // 3, 4: the two hops, each from a snapshot of every CTA's d
+    snapshot(ch, g.snap1, g.bar, sh);
+    hop(ch, cf, cntF, g.snap1);
+    __syncthreads();
+    snapshot(ch, g.snap2, g.bar, sh);
+    hop(ch, cb, cntB, g.snap2);
+    __syncthreads();
+    int lowered = 0;
+    for (int i = tid; i < ch.cl; i += kThreads) lowered |= ch.d[i] < ch.dold[i];
+    my_chg = __syncthreads_or(lowered);
+    ++pass;
+  }
+  return pass - 1;
+}
+
+// Exact residual distances to T, then to S, and the labels from them
+// (written to the current buffer); returns the closure rounds.
+__device__ int global_relabel(const Net& net, const Glob& g, const Chunk& ch, Shared& sh,
+                              int32_t* lab_cur) {
+  const int tid = threadIdx.x, c = blockIdx.x, n = net.n;
+  const int num_nodes = n + 3;
+  // the residual reads of each direction, compacted (order is free: min)
+  const int f0 = net.rangeF[c], b0 = net.rangeB[c];
+  if (tid == 0) {
+    sh.cntF = 0;
+    sh.cntB = 0;
+  }
+  __syncthreads();
+  for (int j = f0 + tid; j < net.rangeF[c + 1]; j += kThreads) {
+    const int4 e = net.hopF[j];
+    if (ldcg(g.f_read + e.z) == 0) g.cf[f0 + atomicAdd(&sh.cntF, 1)] = make_int2(e.x - ch.lo, e.y);
+  }
+  for (int j = b0 + tid; j < net.rangeB[c + 1]; j += kThreads) {
+    const int4 e = net.hopB[j];
+    if (ldcg(g.f_read + e.z) > 0) g.cb[b0 + atomicAdd(&sh.cntB, 1)] = make_int2(e.x - ch.lo, e.y);
+  }
+  // reverse-scan segment starts, and the seed of the distance to T
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    const int gi = ch.lo + i;
+    ch.flag[i] = gi == n || ldcg(g.f_chain + gi) == 0;
+    ch.d[i] = sub32(net.cap_snk[gi], ldcg(g.f_snk + gi)) > 0 ? 1 : BIG;
+  }
+  __syncthreads();
+  const int cntF = sh.cntF, cntB = sh.cntB;
+  int rounds = closure(ch, g, sh, cntF, cntB, g.cf + f0, g.cb + b0);
+  // nodes cut off from T route excess back to S
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    ch.dT[i] = ch.d[i];
+    ch.d[i] = ldcg(g.f_src + ch.lo + i) > 0 ? 1 : BIG;
+  }
+  __syncthreads();
+  rounds += closure(ch, g, sh, cntF, cntB, g.cf + f0, g.cb + b0);
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    const int32_t dT = ch.dT[i], dS = ch.d[i];
+    const int32_t l = dT < BIG ? dT : (dS < BIG ? num_nodes + dS : 2 * num_nodes);
+    ch.lab[i] = l;
+    lab_cur[ch.lo + i] = l;
+  }
+  grid_sync(g.bar, sh.bar_target);
+  return rounds;
+}
+
+// ---- the superstep ----
+
+// an arc's residual from the flows (kind 5, T -> i, has no line tail)
+__device__ __forceinline__ int32_t residual(const Net& net, const Glob& g, int kind, int slot) {
+  switch (kind) {
+    case 0: return 1 - ldcg(g.f_read + slot);  // read_fwd (valid reads only)
+    case 1: return ldcg(g.f_read + slot);      // read_bwd
+    case 2: return BIG - ldcg(g.f_chain + slot);  // chain_fwd
+    case 3: return ldcg(g.f_chain + slot);     // chain_bwd
+    case 4: return ldcg(g.f_src + slot);       // src_bwd
+    case 5: return ldcg(g.f_snk + slot);       // snk_bwd
+    default: return sub32(net.cap_snk[slot], ldcg(g.f_snk + slot));  // snk_fwd
+  }
+}
+
+// push `amt` along the arc: only this arc's tail writes its slot this wave
+__device__ __forceinline__ void push(const Glob& g, int kind, int slot, int32_t amt) {
+  int32_t* p;
+  bool up = true;
+  switch (kind) {
+    case 0: p = g.f_read; break;
+    case 1: p = g.f_read; up = false; break;
+    case 2: p = g.f_chain; break;
+    case 3: p = g.f_chain; up = false; break;
+    case 4: p = g.f_src; up = false; break;
+    case 5: p = g.f_snk; up = false; break;
+    default: p = g.f_snk; break;
+  }
+  const int32_t f = ldcg(p + slot);
+  p[slot] = up ? add32(f, amt) : sub32(f, amt);
+}
+
+// one warp discharges chunk node i along its segment, 32 arcs a step;
+// lane 0 counts the arcs the warp read into `walked`
+__device__ void discharge(const Net& net, const Glob& g, const Chunk& ch, int i,
+                          const int32_t* lab_cur, long long& walked) {
+  const int lane = threadIdx.x & 31;
+  const int gi = ch.lo + i, a1 = net.off[gi + 1];
+  const int32_t lt = ch.lab[i], ex = ch.ex[i];
+  long long rem = ex;
+  for (int base = net.off[gi]; base < a1; base += 32) {
+    const int a = base + lane;
+    long long want = 0;
+    int head = 0, kind = 0, slot = 0;
+    if (a < a1) {
+      const int2 e = net.arcs[a];
+      head = e.x;
+      kind = e.y & 7;
+      slot = e.y >> 3;
+      if (lt == ldcg(lab_cur + head) + 1) {
+        const int32_t r = residual(net, g, kind, slot);
+        if (r > 0) want = r;
+      }
+    }
+    long long incl = want;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long p = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += p;
+    }
+    const long long amt = min(max(rem - (incl - want), 0LL), want);
+    if (amt > 0) {
+      push(g, kind, slot, static_cast<int32_t>(amt));
+      atomicAdd(g.in + head, static_cast<int32_t>(amt));
+    }
+    rem -= __shfl_sync(kFull, incl, 31);
+    if (lane == 0) walked += min(32, a1 - base);
+    if (rem <= 0) break;
+  }
+  if (lane == 0) ch.out[i] = static_cast<int32_t>(ex - max(rem, 0LL));
+}
+
+// one warp relabels chunk node i: 1 + the least pre-wave head label over
+// its post-wave residual arcs, at most 2 (n + 3)
+__device__ void relabel(const Net& net, const Glob& g, const Chunk& ch, int i,
+                        const int32_t* lab_cur, int32_t cap, long long& walked) {
+  const int lane = threadIdx.x & 31;
+  const int gi = ch.lo + i, a1 = net.off[gi + 1];
+  if (lane == 0) walked += a1 - net.off[gi];
+  int32_t m = cap;
+  for (int a = net.off[gi] + lane; a < a1; a += 32) {
+    const int2 e = net.arcs[a];
+    if (residual(net, g, e.y & 7, e.y >> 3) > 0) m = min(m, ldcg(lab_cur + e.x));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
+  if (lane == 0) ch.lab[i] = min(m + 1, cap);
+}
+
+// One wave at `step`; returns whether a line node is still active.
+__device__ int superstep(const Net& net, const Glob& g, const Chunk& ch, Shared& sh, int step,
+                         const int32_t* lab_cur, int32_t* lab_next, long long* walked) {
+  const int tid = threadIdx.x, warp = tid >> 5, c = blockIdx.x, G = gridDim.x, n = net.n;
+  if (tid == 0) sh.cnt = 0;
+  __syncthreads();
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    const int e = ch.ex[i] > 0 && (ch.lab[i] & 1) == (step & 1);
+    ch.elig[i] = e;
+    ch.out[i] = 0;
+    if (e) ch.list[atomicAdd(&sh.cnt, 1)] = i;
+  }
+  __syncthreads();
+  for (int k = warp; k < sh.cnt; k += kWarps)
+    discharge(net, g, ch, ch.list[k], lab_cur, walked[0]);
+  // 1: every push done; each owner applies what reached it
+  grid_sync(g.bar, sh.bar_target);
+  if (tid == 0) sh.cnt = 0;
+  __syncthreads();
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    int32_t* in = g.in + ch.lo + i;
+    const int32_t ex = add32(sub32(ch.ex[i], ch.out[i]), ldcg(in));
+    *in = 0;
+    ch.ex[i] = ex;
+    if (ch.elig[i] && ch.out[i] == 0 && ex > 0) ch.list[atomicAdd(&sh.cnt, 1)] = i;
+  }
+  if (c == G - 1 && tid < 2) {  // S and T
+    const int v = n + 1 + tid;
+    g.excess[v] = add32(ldcg(g.excess + v), ldcg(g.in + v));
+    g.in[v] = 0;
+  }
+  __syncthreads();
+  for (int k = warp; k < sh.cnt; k += kWarps)
+    relabel(net, g, ch, ch.list[k], lab_cur, 2 * (n + 3), walked[1]);
+  __syncthreads();
+  int act = 0;
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    lab_next[ch.lo + i] = ch.lab[i];
+    act |= ch.ex[i] > 0;
+  }
+  act = __syncthreads_or(act);
+  if (tid == 0) g.act[c] = act;
+  // 2: the new labels published; is any node still active?
+  grid_sync(g.bar, sh.bar_target);
+  return __syncthreads_or(tid < G ? ldcg(g.act + tid) : 0);
+}
+
+// kWs: the node arrays in the workspace (node_ws) instead of shared memory;
+// a template argument, so that the shared-memory instantiation keeps its
+// shared loads, stores and atomics (a pointer that may be either becomes a
+// generic one, and the hops' atomicMin twice as slow)
+template <bool kWs>
+__global__ void __launch_bounds__(kThreads, 1)
+    push_relabel_kernel(Net net, Glob g, const int32_t* __restrict__ excess0,
+                        const int32_t* __restrict__ label0, long long* __restrict__ scalars,
+                        int32_t max_supersteps, int32_t relabel_every, int32_t* node_ws) {
+  extern __shared__ __align__(16) int32_t smem[];
+  __shared__ Shared sh;
+  const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x, n = net.n;
+  if (tid == 0) sh.bar_target = 0;
+  const int n1 = n + 1;
+  const int C = (n1 + G - 1) / G, Cp = (C + 3) & ~3;
+  Chunk ch;
+  ch.lo = min(c * C, n1);
+  ch.cl = min(C, n1 - ch.lo);
+  ch.K = (ch.cl + kThreads - 1) / kThreads;
+  int32_t* a = kWs ? node_ws + static_cast<size_t>(c) * kNodeArrays * Cp : smem;
+  ch.d = a;
+  ch.dold = a + Cp;
+  ch.dT = a + 2 * Cp;
+  ch.flag = a + 3 * Cp;
+  ch.lab = a + 4 * Cp;
+  ch.ex = a + 5 * Cp;
+  ch.out = a + 6 * Cp;
+  ch.elig = a + 7 * Cp;
+  ch.list = a + 8 * Cp;
+  // the preflow: the wrapper's initial state (the twin's)
+  for (int r = c * kThreads + tid; r < net.R; r += G * kThreads) g.f_read[r] = 0;
+  int act = 0;
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    const int gi = ch.lo + i;
+    if (gi < n) g.f_chain[gi] = 0;
+    g.f_src[gi] = net.cap_src[gi];
+    g.f_snk[gi] = 0;
+    g.in[gi] = 0;
+    ch.ex[i] = excess0[gi];
+    ch.lab[i] = label0[gi];
+    act |= ch.ex[i] > 0;
+  }
+  if (c == G - 1 && tid < 2) {  // S and T: their labels never change
+    const int v = n + 1 + tid;
+    g.excess[v] = excess0[v];
+    g.labA[v] = label0[v];
+    g.labB[v] = label0[v];
+    g.in[v] = 0;
+  }
+  act = __syncthreads_or(act);
+  if (tid == 0) g.act[c] = act;
+  if (c == 0 && tid == 0) scalars[8] = scalars[9] = 0;
+  grid_sync(g.bar, sh.bar_target);
+  int live = __syncthreads_or(tid < G ? ldcg(g.act + tid) : 0);
+  int32_t* lab_cur = g.labA;
+  int32_t* lab_next = g.labB;
+  int step = 0, relabels = 0;
+  long long rounds = 0, walked[2] = {0, 0};
+  unsigned long long ns_rl = 0, ns_ss = 0;
+  long long cy_rl = 0, cy_ss = 0;
+  while (live && step < max_supersteps) {
+    const unsigned long long t0 = global_ns();
+    const long long k0 = clock64();
+    rounds += global_relabel(net, g, ch, sh, lab_cur);
+    ++relabels;
+    const unsigned long long t1 = global_ns();
+    const long long k1 = clock64();
+    const int budget =
+        static_cast<int>(min(static_cast<long long>(step) + relabel_every,
+                             static_cast<long long>(max_supersteps)));
+    while (live && step < budget) {
+      live = superstep(net, g, ch, sh, step, lab_cur, lab_next, walked);
+      ++step;
+      int32_t* t = lab_cur;
+      lab_cur = lab_next;
+      lab_next = t;
+    }
+    ns_rl += t1 - t0;
+    ns_ss += global_ns() - t1;
+    cy_rl += k1 - k0;
+    cy_ss += clock64() - k1;
+  }
+  // the final state; excess_left: the excess of line nodes still active
+  long long left = 0;
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    const int gi = ch.lo + i;
+    g.excess[gi] = ch.ex[i];
+    g.labA[gi] = ch.lab[i];
+    if (ch.ex[i] > 0) left += ch.ex[i];
+  }
+  left = block_sum(left, sh);
+  walked[0] = block_sum(walked[0], sh);
+  walked[1] = block_sum(walked[1], sh);
+  if (tid == 0) {
+    g.left[c] = left;
+    atomicAdd(reinterpret_cast<unsigned long long*>(scalars + 8), walked[0]);
+    atomicAdd(reinterpret_cast<unsigned long long*>(scalars + 9), walked[1]);
+  }
+  grid_sync(g.bar, sh.bar_target);
+  if (c == 0) {
+    long long v = 0;
+    for (int q = tid; q < G; q += kThreads) v += ldcg(g.left + q);
+    v = block_sum(v, sh);
+    if (tid == 0) {
+      scalars[0] = step;
+      scalars[1] = v;
+      scalars[2] = relabels;
+      scalars[3] = rounds;
+      scalars[4] = static_cast<long long>(ns_rl);
+      scalars[5] = static_cast<long long>(ns_ss);
+      scalars[6] = cy_rl;
+      scalars[7] = cy_ss;
+    }
+  }
+}
+
+}  // namespace
+
+// The workspace, int32 words: 16 of control (the barrier at 0), 8 G of
+// per-CTA partials (aggA, aggEf, aggEv, chg, act, one spare, then left as
+// G int64), 4 arrays of n + 3 (labB, in, snap1, snap2), then the two
+// compacted read tables of R int2 each, 8-byte aligned, then, with
+// nodes_in_ws, each CTA's kNodeArrays arrays of Cp = C rounded up to 4.
+// ops/push_relabel.py::_ws_words mirrors it.
+constexpr int64_t kCtrlWords = 16, kPartialWords = 8, kWsNodeArrays = 4;
+
+// Returns the cudaError_t of the launch (0 on success):
+// cudaErrorNotSupported without cooperative launch,
+// cudaErrorCooperativeLaunchTooLarge where G CTAs cannot be co-resident,
+// cudaErrorInvalidValue for sizes it does not take (among them a chunk
+// whose node arrays exceed shared memory without nodes_in_ws, which puts
+// them in the workspace). arcs: int2[A] the tail-sorted
+// table (head, slot << 3 | kind); off: int32[n + 2] each line node's first
+// arc (off[n + 1] ends node n's segment); hopF, hopB: int4[R] the valid
+// reads by start and by end + 1 (tail, other end, read, 0), rangeF,
+// rangeB: int32[G + 1] each CTA's share (CTA c owns the nodes [c C,
+// c C + C), C = ceil((n + 1) / G)); cap_src, cap_snk: int32[n + 1];
+// excess0, label0: int32[n + 3] the preflow; f_read int32[R], f_chain
+// int32[n], f_src and f_snk int32[n + 1], excess and label int32[n + 3]:
+// the final state, out; scalars: int64[10] out (step, excess_left, global
+// relabels, closure rounds, ns and clock64 cycles of CTA 0 inside global
+// relabels, then inside supersteps, the arcs the discharges read, the arcs
+// the relabels read); ws: the workspace.
+extern "C" int gd_push_relabel_solve(const void* arcs, const void* off, const void* hopF,
+                                     const void* rangeF, const void* hopB, const void* rangeB,
+                                     const void* cap_src, const void* cap_snk,
+                                     const void* excess0, const void* label0, void* f_read,
+                                     void* f_chain, void* f_src, void* f_snk, void* excess,
+                                     void* label, void* scalars, void* ws, int64_t n, int64_t R,
+                                     int64_t G, int64_t max_supersteps, int64_t relabel_every,
+                                     int64_t nodes_in_ws, void* stream) {
+  if (n < 1 || n > (1 << 28) || R < 1 || R >= (1 << 28) || G < 1 || G > n + 1 ||
+      G > kThreads || max_supersteps < 0 || max_supersteps > INT_MAX || relabel_every < 1 ||
+      relabel_every > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  const int64_t C = (n + G) / G, Cp = (C + 3) & ~int64_t(3);
+  const int64_t node_bytes = kNodeArrays * Cp * 4;
+  if (!nodes_in_ws && node_bytes > optin - int64_t(sizeof(Shared)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = nodes_in_ws ? 0 : static_cast<size_t>(node_bytes);
+  auto kernel = nodes_in_ws ? push_relabel_kernel<true> : push_relabel_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (int64_t(per_sm) * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
+
+  Net net{static_cast<const int2*>(arcs),      static_cast<const int32_t*>(off),
+          static_cast<const int4*>(hopF),      static_cast<const int32_t*>(rangeF),
+          static_cast<const int4*>(hopB),      static_cast<const int32_t*>(rangeB),
+          static_cast<const int32_t*>(cap_src), static_cast<const int32_t*>(cap_snk),
+          static_cast<int>(n),                 static_cast<int>(R)};
+  int32_t* w = static_cast<int32_t*>(ws);
+  const int64_t m = n + 3;
+  int32_t* part = w + kCtrlWords;
+  int32_t* nodes = part + kPartialWords * G;
+  int2* tabs = reinterpret_cast<int2*>(
+      w + ((kCtrlWords + kPartialWords * G + kWsNodeArrays * m + 1) & ~int64_t(1)));
+  Glob g{static_cast<int32_t*>(f_read), static_cast<int32_t*>(f_chain),
+         static_cast<int32_t*>(f_src),  static_cast<int32_t*>(f_snk),
+         static_cast<int32_t*>(excess), static_cast<int32_t*>(label),
+         reinterpret_cast<unsigned*>(w),
+         part, part + G, part + 2 * G, part + 3 * G, part + 4 * G,
+         reinterpret_cast<long long*>(part + 6 * G),
+         nodes, nodes + m, nodes + 2 * m, nodes + 3 * m,
+         tabs, tabs + R};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(w, 0, kCtrlWords * sizeof(int32_t), st);
+  if (err != cudaSuccess) return (int)err;
+  const int32_t* ex0 = static_cast<const int32_t*>(excess0);
+  const int32_t* lb0 = static_cast<const int32_t*>(label0);
+  long long* sc = static_cast<long long*>(scalars);
+  int32_t mss = static_cast<int32_t>(max_supersteps);
+  int32_t rle = static_cast<int32_t>(relabel_every);
+  int32_t* node_ws = nodes_in_ws ? reinterpret_cast<int32_t*>(tabs + 2 * R) : nullptr;
+  void* args[] = {&net, &g, &ex0, &lb0, &sc, &mss, &rle, &node_ws};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(static_cast<unsigned>(G)), dim3(kThreads), args, smem,
+                                    st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}

@@ -2,10 +2,14 @@
 
 Counterpart of the JAX package's ``solvers/push_relabel.py``, where the
 flow network, the label-parity waves and the line-scan global relabel are
-described. Here the same program runs as torch ops on the solver's device
-(the card, or the CPU for the tests), and gives the same flows, labels and
-superstep count bit for bit. Three places where torch and XLA differ, and
-what this module does about each:
+described. On the card the whole solve is one launch of the push-relabel
+kernel (``ops/push_relabel.py::flow_solve``, ``ops/csrc/push_relabel.cu``).
+This module's torch program is that kernel's plain twin: it runs on the
+device of its inputs (the CPU for ``QuasiMcpPushRelabelSolver("cpu")`` and
+the tests, the card where the tests and ``chip_smoke.py`` hold the kernel
+to it), and gives the same flows, labels and superstep count as the JAX
+program bit for bit. Three places where torch and XLA differ, and what
+this module does about each:
 
 - **Out-of-range indices.** The JAX program gathers every kind's flow
   array at every arc's ``slot`` and scatters into every kind's array at
@@ -25,10 +29,11 @@ what this module does about each:
   Here the minimum starts from ``2 * num_nodes``, the mask stays, and
   nothing depends on the value of an empty segment.
 
-Every loop condition is read on the host: one read a round of the distance
-closure, and one a block of up to ``relabel_every`` supersteps, which run
-without a read because a superstep with no active node changes nothing and
-``step`` advances only while a node is active (a device counter).
+The twin reads every loop condition on the host: one read a round of the
+distance closure, and one a block of up to ``relabel_every`` supersteps,
+which run without a read because a superstep with no active node changes
+nothing and ``step`` advances only while a node is active (a device
+counter).
 ``stats`` counts the reads (``host_syncs``).
 
 Node map: genome positions ``0..n``, source ``S = n+1``, sink ``T = n+2``.
@@ -192,6 +197,32 @@ def dist_closure(d, start, end1, rf, rb, f_chain):
             return d, rounds
 
 
+def preflow(capped: torch.Tensor, n: int, R: int):
+    """``(cap_src, cap_snk, state)``: the source and sink capacities of the
+    line nodes (int32[n+1]) from the per-base target ``capped``, and the
+    preflow (every source arc saturated, labels 0 but S's n+3)."""
+    dev = capped.device
+    num_nodes = n + 3
+    demand = demand_from_capped(capped.to(_I32))  # int32[n+1] over nodes 0..n
+    cap_src = demand.neg().clamp(min=0)
+    cap_snk = demand.clamp(min=0)
+    excess = torch.zeros(num_nodes, dtype=_I32, device=dev)
+    excess[:n + 1] += cap_src
+    excess[n + 1] = -cap_src.sum().to(_I32)
+    label = torch.zeros(num_nodes, dtype=_I32, device=dev)
+    label[n + 1] = num_nodes
+    st = FlowState(
+        f_read=torch.zeros(R, dtype=_I32, device=dev),
+        f_chain=torch.zeros(n, dtype=_I32, device=dev),
+        f_src=cap_src,
+        f_snk=torch.zeros(n + 1, dtype=_I32, device=dev),
+        excess=excess,
+        label=label,
+        step=torch.zeros((), dtype=_I32, device=dev),
+    )
+    return cap_src, cap_snk, st
+
+
 def push_relabel_solve(
     start: torch.Tensor,
     end: torch.Tensor,
@@ -212,35 +243,35 @@ def push_relabel_solve(
     included), ``host_syncs`` and the laps ``laps_s`` (``arcs``,
     ``relabel``, ``supersteps``; seconds of wall time, each ending in a
     host read)."""
+    st, step, excess_left = push_relabel_run(start, end, read_valid, capped, n,
+                                             max_supersteps, relabel_every, stats)
+    return (st.f_read > 0) & read_valid, step, excess_left
+
+
+def push_relabel_run(
+    start: torch.Tensor,
+    end: torch.Tensor,
+    read_valid: torch.Tensor,
+    capped: torch.Tensor,
+    n: int,
+    max_supersteps: int = 200_000,
+    relabel_every: int = 25,
+    stats: dict | None = None,
+):
+    """``push_relabel_solve``'s program, returning ``(state, steps,
+    excess_left)``: the final ``FlowState`` and two ints. The plain twin of
+    the push-relabel kernel (``ops/push_relabel.py::flow_solve``)."""
     dev = start.device
     R = start.shape[0]
     num_nodes = n + 3
-    S = n + 1
     t0 = time.perf_counter()
     with annotate("flow.arcs"):
         start32 = start.to(_I32)
         end1 = end.to(_I32) + 1
-        demand = demand_from_capped(capped.to(_I32))  # int32[n+1] over nodes 0..n
-        cap_src = demand.neg().clamp(min=0)
-        cap_snk = demand.clamp(min=0)
         arcs = build_arc_table(start32, end.to(_I32), n, R)
         tails, heads, seg_start = arcs.tails.long(), arcs.heads.long(), arcs.seg_start.long()
-
         # Preflow: saturate all source arcs.
-        excess = torch.zeros(num_nodes, dtype=_I32, device=dev)
-        excess[:n + 1] += cap_src
-        excess[S] = -cap_src.sum().to(_I32)
-        label = torch.zeros(num_nodes, dtype=_I32, device=dev)
-        label[S] = num_nodes
-        st = FlowState(
-            f_read=torch.zeros(R, dtype=_I32, device=dev),
-            f_chain=torch.zeros(n, dtype=_I32, device=dev),
-            f_src=cap_src,
-            f_snk=torch.zeros(n + 1, dtype=_I32, device=dev),
-            excess=excess,
-            label=label,
-            step=torch.zeros((), dtype=_I32, device=dev),
-        )
+        cap_src, cap_snk, st = preflow(capped, n, R)
         node_is_line = torch.arange(num_nodes, device=dev) <= n
         label_tail = torch.tensor([num_nodes, 0], dtype=_I32, device=dev)  # S, T
     laps = {"arcs": time.perf_counter() - t0, "relabel": 0.0, "supersteps": 0.0}
@@ -325,23 +356,30 @@ def push_relabel_solve(
         t2 = time.perf_counter()
         laps["relabel"] += t1 - t0
         laps["supersteps"] += t2 - t1
-    selected = (st.f_read > 0) & read_valid
     excess_left = int(torch.where(active_mask(st), st.excess, 0).sum())
     count["host_syncs"] += 1
     if stats is not None:
         stats.update(supersteps=step, laps_s=laps, **count)
-    return selected, step, excess_left
+    return st, step, excess_left
 
 
 class QuasiMcpPushRelabelSolver(Solver):
     """Feasible-selection push-relabel solver (``quasi-mcp-flow-cuda``),
     deterministic and bit-equal to the JAX ``quasi-mcp-flow-tpu``.
 
-    ``device`` is required: ``"cuda"`` runs the program on the card (and
-    raises without one), ``"cpu"`` runs it on the host (the tests).
-    ``last_stats`` holds ``engine``, the counts of ``push_relabel_solve``
-    and the laps ``laps_s`` (``coverage``, ``arcs``, ``relabel``,
-    ``supersteps``, ``select``; seconds)."""
+    ``device`` is required: ``"cuda"`` runs the solve as one launch of the
+    push-relabel kernel (and raises without a card, or where the kernel
+    does not build or launch), ``"cpu"`` runs the torch program on the host
+    (the tests). ``last_stats`` holds ``engine`` (``"cuda"`` or
+    ``"torch"``), the counts ``supersteps``, ``bodies``,
+    ``global_relabels``, ``closure_rounds``, ``host_syncs`` and the laps
+    ``laps_s`` (``coverage``, ``arcs``, ``relabel``, ``supersteps``,
+    ``select``; seconds). On the card ``bodies`` equals ``supersteps`` (the
+    kernel runs no no-op body), ``relabel`` and ``supersteps`` are the
+    kernel's own global-timer laps (CTA 0's, also as ``closure_ns``,
+    ``superstep_ns`` and clock64 ``closure_cycles``, ``superstep_cycles``),
+    ``kernel`` the host's wall time from the launch to its one read, and
+    ``arcs`` the host's time to queue the tables and the preflow."""
 
     uses_quality_of_reads = False
 
@@ -360,7 +398,8 @@ class QuasiMcpPushRelabelSolver(Solver):
 
     def solve(self, max_coverage: int, batch: ReadBatch) -> Solution:
         n = batch.ref_genome_length
-        stats = {"engine": "torch", "device": str(self.device)}
+        on_card = self.device.type == "cuda"
+        stats = {"engine": "cuda" if on_card else "torch", "device": str(self.device)}
         self.last_stats = stats
         t0 = time.perf_counter()
         with annotate("flow.coverage"):
@@ -371,16 +410,25 @@ class QuasiMcpPushRelabelSolver(Solver):
             cov = coverage_from_intervals(start, end, n, vmask.to(_I32))
             capped = capped_coverage(cov, int(max_coverage))
         t_cov = time.perf_counter() - t0
-        selected, steps, excess_left = push_relabel_solve(
-            start, end, vmask, capped, n,
-            max_supersteps=self.max_supersteps,
-            relabel_every=self.relabel_every,
-            stats=stats,
-        )
+        if on_card:
+            from genome_downsampler_tpu_torch.ops.push_relabel import flow_solve
+
+            st, excess_left, counts = flow_solve(
+                start, end, vmask, capped, n, max_supersteps=self.max_supersteps,
+                relabel_every=self.relabel_every)
+            stats.update(counts)
+            selected = (st.f_read > 0) & vmask
+        else:
+            selected, _, excess_left = push_relabel_solve(
+                start, end, vmask, capped, n,
+                max_supersteps=self.max_supersteps,
+                relabel_every=self.relabel_every,
+                stats=stats,
+            )
         if excess_left != 0:
             raise RuntimeError(
                 f"push-relabel did not converge: {excess_left} excess "
-                f"left after {steps} supersteps "
+                f"left after {stats['supersteps']} supersteps "
                 f"(cap {self.max_supersteps}); selection would be infeasible"
             )
         t0 = time.perf_counter()

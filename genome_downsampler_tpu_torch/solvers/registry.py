@@ -7,7 +7,8 @@ reference's own name for its accelerator solver; ``mcp-cuda``,
 ``mcp-cuda-blocked``, ``qmcp-sweep-cuda``, ``qmcp-cuda`` and
 ``quasi-mcp-flow-cuda`` mirror ``mcp-tpu``, ``mcp-tpu-blocked``,
 ``qmcp-sweep-tpu``, ``qmcp-tpu`` and ``quasi-mcp-flow-tpu`` (the
-deterministic push-relabel flow engine, torch ops on the card). ``mcp-cuda`` and
+deterministic push-relabel flow engine, one push-relabel kernel launch a
+solve). ``mcp-cuda`` and
 ``quasi-mcp-cuda`` run the dense engine up to 262,144 bases and the blocked
 engine above, and refuse reads longer than 256 bases; ``mcp-cuda-blocked``
 always runs the blocked engine, which grows its span bound for longer

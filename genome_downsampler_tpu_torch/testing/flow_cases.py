@@ -1,0 +1,59 @@
+"""Inputs of the push-relabel kernel (``ops/push_relabel.py::flow_solve``)
+and its twin: the JAX suite's cases and the cases that put the kernel's CTA
+boundaries to work. The CPU tests, the card tests and ``chip_smoke.py``
+share them."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from genome_downsampler_tpu_torch.ops.coverage import capped_coverage, coverage_from_intervals
+from genome_downsampler_tpu_torch.testing.fixtures import (
+    SMALL_EXAMPLE_MAX_COVERAGE,
+    small_example_batch,
+)
+from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
+
+#: tests/test_push_relabel.py's inputs: its small example and the random
+#: reads of test_random_small_feasible's seeds 0 and 1
+SUITE_CASES = ("small_example", "seed0", "seed1")
+#: n + 1 line nodes at 3 * 256 - 1, 3 * 256 and 3 * 256 + 1: a short last
+#: CTA, three full ones, four ragged ones (ops/ssp.py: grid_shape)
+BOUNDARY_CASES = ("n+1=767", "n+1=768", "n+1=769")
+#: a genome whose CTAs keep their node arrays in the kernel's workspace
+#: (more than about 850,000 line nodes on 132 SMs)
+LARGE_CASE = "n=900000"
+#: the superstep caps that stop the loop mid-block, at a global relabel,
+#: just after one, and at convergence (relabel_every 25)
+CAPS = (1, 2, 3, 24, 25, 26, 51, 200_000)
+
+
+def flow_case(name: str):
+    """``(batch, M, pad_multiple)`` of one of ``SUITE_CASES``,
+    ``BOUNDARY_CASES`` or ``LARGE_CASE``."""
+    if name == "small_example":
+        return small_example_batch(), SMALL_EXAMPLE_MAX_COVERAGE, 32
+    if name in ("seed0", "seed1"):
+        seed = int(name[4:])
+        return rand_reads_uniform(np.random.default_rng(seed), 150, 600, 40), (3, 5)[seed], 512
+    if name in BOUNDARY_CASES:
+        n = int(name.split("=")[1]) - 1
+        return rand_reads_uniform(np.random.default_rng(n), 2 * n // 5, n, 60), 6, 256
+    if name == LARGE_CASE:
+        n = int(name[2:])
+        return rand_reads_uniform(np.random.default_rng(n), 20_000, n, 150), 3, 4096
+    raise ValueError(name)
+
+
+def flow_inputs(batch, m: int, pad: int, device="cpu"):
+    """``(start, end, read_valid, capped, n)`` as ``QuasiMcpPushRelabelSolver``
+    builds them from a batch at M=m, reads padded to a multiple of
+    ``pad``, on ``device``."""
+    arrays, valid = batch.padded(pad)
+    n = batch.ref_genome_length
+    start = torch.tensor(arrays["start"], device=device)
+    end = torch.tensor(arrays["end"], device=device)
+    vmask = torch.tensor(valid, device=device)
+    cov = coverage_from_intervals(start, end, n, vmask.to(torch.int32))
+    return start, end, vmask, capped_coverage(cov, m), n

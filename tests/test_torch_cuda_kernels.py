@@ -26,6 +26,14 @@ from genome_downsampler_tpu_torch.solvers.native_greedy import (
 )
 from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 from genome_downsampler_tpu_torch.testing import variant_cases
+from genome_downsampler_tpu_torch.testing.flow_cases import (
+    BOUNDARY_CASES as FLOW_BOUNDARY_CASES,
+    CAPS,
+    LARGE_CASE,
+    SUITE_CASES,
+    flow_case,
+    flow_inputs,
+)
 from genome_downsampler_tpu_torch.testing.ssp_cases import (
     BOUNDARY_CASES,
     boundary_case,
@@ -954,18 +962,76 @@ def test_variant_and_ablate_kernels_reject_what_they_do_not_take(cuda):
                                                         device="meta"), 2, 128, 64, "full")
 
 
+def _flow_equal(cuda, batch, m, pad, cap):
+    """The push-relabel kernel against its twin, both on the card: the six
+    final state arrays, the step, the excess left and the counts; one
+    launch."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+    from genome_downsampler_tpu_torch.solvers.push_relabel import push_relabel_run
+
+    args = flow_inputs(batch, m, pad, cuda)
+    n0 = pr.flow_solve.launches
+    st, left, counts = pr.flow_solve(*args, max_supersteps=cap)
+    torch.cuda.synchronize()
+    assert pr.flow_solve.launches == n0 + 1 and counts["host_syncs"] == 1
+    stats = {}
+    ref, steps, ref_left = push_relabel_run(*args, max_supersteps=cap, stats=stats)
+    for field, got, want in zip(ref._fields[:6], st[:6], ref[:6]):
+        assert torch.equal(got, want), field
+    assert int(st.step) == counts["supersteps"] == steps and left == ref_left
+    keys = ("supersteps", "global_relabels", "closure_rounds")
+    assert {k: counts[k] for k in keys} == {k: stats[k] for k in keys}
+    return counts
+
+
+@pytest.mark.parametrize("cap", CAPS)
+@pytest.mark.parametrize("name", SUITE_CASES)
+def test_push_relabel_kernel_matches_twin(cuda, name, cap):
+    counts = _flow_equal(cuda, *flow_case(name), cap)
+    assert counts["supersteps"] <= cap and counts["global_relabels"] >= 1
+
+
+@pytest.mark.parametrize("name", FLOW_BOUNDARY_CASES)
+def test_push_relabel_kernel_cta_boundaries_match_twin(cuda, name):
+    from genome_downsampler_tpu_torch.ops.ssp import grid_shape
+
+    batch, m, pad = flow_case(name)
+    n = batch.ref_genome_length
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    G, C = grid_shape(n, sms)
+    assert G >= 3 and (G - 1) * C < n + 1 <= G * C
+    for cap in (26, 200_000):
+        _flow_equal(cuda, batch, m, pad, cap)
+
+
+def test_push_relabel_kernel_with_node_arrays_in_the_workspace_matches_twin(cuda):
+    """900,000 line nodes: a CTA's node arrays exceed its shared memory and
+    lie in the workspace."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    batch, m, pad = flow_case(LARGE_CASE)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pr.prepare(*flow_inputs(batch, m, pad, cuda), sms)["nodes_in_ws"]
+    _flow_equal(cuda, batch, m, pad, 26)
+
+
 def test_push_relabel_cuda_equals_cpu_at_the_3000_base_cut(cuda):
-    """quasi-mcp-flow-cuda's program on the card (torch ops, no hand
-    kernel yet) against the same program on the CPU, at the 3,000-base cut
-    of config-1 (2,508 pairs, M=100): read set and every count equal."""
+    """quasi-mcp-flow-cuda on the card (one push-relabel kernel launch)
+    against the torch program on the CPU, at the 3,000-base cut of
+    config-1 (2,508 pairs, M=100): read set and the counts equal; the card
+    reads the host once a solve (the CPU run once a closure round)."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
     from genome_downsampler_tpu_torch.solvers.push_relabel import QuasiMcpPushRelabelSolver
 
     batch = rand_reads_uniform(np.random.default_rng(12345), 2_508, 3_000, 150)
     on_card, on_cpu = QuasiMcpPushRelabelSolver(cuda), QuasiMcpPushRelabelSolver("cpu")
+    n0 = pr.flow_solve.launches
     np.testing.assert_array_equal(on_card.solve(100, batch), on_cpu.solve(100, batch))
-    keys = ("supersteps", "bodies", "global_relabels", "closure_rounds", "host_syncs")
+    assert pr.flow_solve.launches == n0 + 1 and on_card.last_stats["engine"] == "cuda"
+    keys = ("supersteps", "global_relabels", "closure_rounds")
     assert ({k: on_card.last_stats[k] for k in keys}
             == {k: on_cpu.last_stats[k] for k in keys})
+    assert on_card.last_stats["host_syncs"] <= 2
 
 
 def test_mesh_engines_over_nccl_at_world_size_one(cuda):

@@ -1,0 +1,388 @@
+"""The push-relabel kernel's decomposition (``csrc/push_relabel.cu``),
+emulated in plain Python on the CPU and held equal to its twin
+(``solvers/push_relabel.py``) on seeded inputs.
+
+The distance closure: the kernel cuts the ``n + 1`` line nodes into chunks
+of C, one a CTA, and each chunk into runs of K nodes, one a thread. The
+prefix-min scan of ``d(j) - j`` and the reverse scan of ``d(j) + j``
+(segmented at zero chain flow) each publish every chunk's aggregate, fold
+the chunks before (in scan order) into a carry and scan their runs from
+it. The hops are owned by the tail's chunk, over the reads each chunk
+compacts from the wrapper's tables, and read two snapshots of d: the
+forward hop the one after the closure, the backward hop the one after the
+forward hop. Chunk sizes 1, 7, 256 and larger than n, with one and several
+nodes a thread, catch carry, segment and snapshot mistakes.
+
+The superstep: a warp walks each eligible node's segment of the wrapper's
+arc table 32 arcs at a time, with an int64 prefix of what the admissible
+arcs want; heads gain through an accumulator; owners relabel into a second
+label buffer. The whole loop (global relabels and supersteps, as the
+kernel runs them) is held to the twin's final state after 1, 2 and 30
+waves and at convergence; no flow slot may be written twice in a wave, nor
+read by an arc that passes the label test after another node wrote it.
+Tolerance 0 throughout.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from genome_downsampler_tpu_torch.ops import push_relabel as kernel
+from genome_downsampler_tpu_torch.solvers import push_relabel as twin
+from genome_downsampler_tpu_torch.testing.flow_cases import (
+    BOUNDARY_CASES,
+    SUITE_CASES,
+    flow_case,
+    flow_inputs,
+)
+
+BIG = twin.BIG
+NONE = 2**31 - 1
+SOURCE = Path(kernel.__file__).parent / "csrc" / "push_relabel.cu"
+
+
+def chunks(n1, C):
+    return [(lo, min(lo + C, n1)) for lo in range(0, n1, C)]
+
+
+def fold(items, combine, ident):
+    acc = ident
+    for x in items:
+        acc = combine(acc, x)
+    return acc
+
+
+def scan_kernel_way(items, lens, threads, combine, ident):
+    """Inclusive scan of ``items`` (in scan order) the kernel's way: cut
+    into consecutive chunks of ``lens``, each chunk into runs of
+    K = ceil(len / threads), one a thread; each chunk's aggregate, the
+    carry from the chunks before, each run's aggregate, the fold of the
+    runs before, then the run in order."""
+    aggs, pos = [], 0
+    for L in lens:
+        aggs.append(fold(items[pos:pos + L], combine, ident))
+        pos += L
+    out, pos = [], 0
+    for ci, L in enumerate(lens):
+        carry = fold(aggs[:ci], combine, ident)
+        K = -(-L // threads)
+        runs = [items[pos + k:pos + min(k + K, L)] for k in range(0, L, K)]
+        run_aggs = [fold(r, combine, ident) for r in runs]
+        for ri, run in enumerate(runs):
+            acc = combine(carry, fold(run_aggs[:ri], combine, ident))
+            for x in run:
+                acc = combine(acc, x)
+                out.append(acc)
+        pos += L
+    return out
+
+
+def seg(prefix, item):
+    """The segmented min combine (``_seg_min``): ``prefix`` then ``item``."""
+    (pf, pv), (f, v) = prefix, item
+    return pf | f, v if f else min(pv, v)
+
+
+def compact(hop, rng, f_read, want_flow, C):
+    """Each chunk's residual reads of one direction, as the kernel compacts
+    them at a global relabel: (tail - lo, other end)."""
+    rows, bounds = hop.tolist(), rng.tolist()
+    out = []
+    for c in range(len(bounds) - 1):
+        lo = c * C
+        out.append([(t - lo, o) for t, o, r, _ in rows[bounds[c]:bounds[c + 1]]
+                    if (f_read[r] > 0) == want_flow])
+    return out
+
+
+def closure_kernel_way(d, flag, cf, cb, C, threads):
+    """The fixpoint of the closure and the hops from seed ``d``, the
+    kernel's way; returns ``(d, rounds)``."""
+    d = list(d)
+    n1 = len(d)
+    lens = [hi - lo for lo, hi in chunks(n1, C)]
+
+    def close(d):
+        a = [BIG if d[i] >= BIG else d[i] - i for i in range(n1)]
+        pm = scan_kernel_way(a, lens, threads, min, NONE)
+        d = [min(d[i], BIG if pm[i] >= BIG else pm[i] + i) for i in range(n1)]
+        # the reverse scan: node n first, each chunk's nodes from its last
+        items = [(flag[i], BIG if d[i] >= BIG else d[i] + i) for i in range(n1 - 1, -1, -1)]
+        sm = scan_kernel_way(items, lens[::-1], threads, seg, (0, NONE))[::-1]
+        return [min(d[i], (BIG if sm[i][1] >= BIG else sm[i][1]) - i) for i in range(n1)]
+
+    def hop(d, tables):
+        snap = list(d)
+        for c, (lo, _) in enumerate(chunks(n1, C)):
+            for tl, o in tables[c]:
+                if snap[o] < BIG:
+                    d[lo + tl] = min(d[lo + tl], snap[o] + 1)
+        return d
+
+    d = close(d)
+    rounds = 0
+    while True:
+        d0 = d
+        d = hop(hop(close(d), cf), cb)
+        rounds += 1
+        if not any(x < y for x, y in zip(d, d0)):
+            return d, rounds
+
+
+def _closure_inputs(seed, chain):
+    """tests/test_torch_push_relabel.py's closure inputs, with the reads'
+    flows and validity kept apart (rf = valid & no flow, rb = valid & flow)."""
+    rng = np.random.default_rng(seed)
+    n, r = 400, 260
+    start = rng.integers(0, n - 3, r).astype(np.int32)
+    end1 = np.minimum(start + rng.integers(1, 60, r), n).astype(np.int32)
+    fr = rng.random(r) < 0.4
+    valid = rng.random(r) < 0.9
+    seeds = rng.random(n + 1)
+    d = np.where(seeds < 0.03, 1, np.where(seeds < 0.06, rng.integers(2, 90, n + 1), BIG))
+    if chain == "zero":
+        f_chain = np.zeros(n, np.int32)
+    elif chain == "positive":
+        f_chain = rng.integers(1, 5, n)
+    else:
+        f_chain = np.where(rng.random(n) < 0.15, 0, rng.integers(1, 5, n)) * (
+            (np.arange(n) // 37) % 3 != 0)
+    return d.astype(np.int32), start, end1, fr, valid, f_chain.astype(np.int32)
+
+
+@pytest.mark.parametrize("C,threads", [(1, 256), (7, 256), (7, 2), (256, 256), (405, 256),
+                                       (405, 64)])
+@pytest.mark.parametrize("chain", ["zero", "positive", "runs"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_closure_chunked_equals_dist_closure(seed, chain, C, threads):
+    d, start, end1, fr, valid, f_chain = _closure_inputs(seed, chain)
+    n = f_chain.shape[0]
+    ref, ref_rounds = twin.dist_closure(
+        torch.from_numpy(d), torch.from_numpy(start), torch.from_numpy(end1),
+        torch.from_numpy(valid & ~fr), torch.from_numpy(valid & fr), torch.from_numpy(f_chain))
+    G = len(chunks(n + 1, C))
+    hop_f, range_f, hop_b, range_b = kernel.hop_tables(
+        torch.from_numpy(start), torch.from_numpy(end1), torch.from_numpy(valid), n, G, C)
+    f_read = fr.astype(int).tolist()
+    cf = compact(hop_f, range_f, f_read, False, C)
+    cb = compact(hop_b, range_b, f_read, True, C)
+    flag = [int(i == n or f_chain[i] == 0) for i in range(n + 1)]
+    got, rounds = closure_kernel_way(d.tolist(), flag, cf, cb, C, threads)
+    assert got == ref.tolist() and rounds == ref_rounds
+
+
+def test_hop_tables_hold_each_valid_read_once_in_its_tails_chunk():
+    _, start, end1, _, valid, _ = _closure_inputs(3, "runs")
+    n, C = 400, 7
+    G = len(chunks(n + 1, C))
+    hop_f, range_f, hop_b, range_b = kernel.hop_tables(
+        torch.from_numpy(start), torch.from_numpy(end1), torch.from_numpy(valid), n, G, C)
+    for hop, rng, tail, other in ((hop_f, range_f, start, end1), (hop_b, range_b, end1, start)):
+        rows, b = hop.numpy(), rng.tolist()
+        assert b[0] == 0 and b[-1] == int(valid.sum())
+        assert sorted(rows[:b[-1], 2].tolist()) == np.flatnonzero(valid).tolist()
+        np.testing.assert_array_equal(rows[:, 0], tail[rows[:, 2]])
+        np.testing.assert_array_equal(rows[:, 1], other[rows[:, 2]])
+        for c in range(G):
+            assert all(c * C <= t < (c + 1) * C for t in rows[b[c]:b[c + 1], 0])
+
+
+@pytest.mark.parametrize("name", SUITE_CASES + BOUNDARY_CASES)
+def test_kernel_arc_table_is_the_twins_without_padded_reads(name):
+    start, end, valid, _, n = flow_inputs(*flow_case(name))
+    R = start.shape[0]
+    ref = twin.build_arc_table(start, end, n, R)
+    arcs, off = kernel.kernel_arc_table(start, end, valid, n)
+    is_read = ref.kind <= 1
+    padded = is_read & ~valid[torch.where(is_read, ref.slot, 0).long()]
+    keep = ~padded & (ref.tails <= n)
+    heads, code = arcs[:, 0], arcs[:, 1]
+    line = int(off[-1])
+    assert torch.equal(heads[:line], ref.heads[keep])
+    assert torch.equal(code[:line] & 7, ref.kind[keep])
+    assert torch.equal(code[:line] >> 3, ref.slot[keep])
+    assert torch.equal(off.long(), torch.searchsorted(ref.tails[keep], torch.arange(n + 2)))
+
+
+# ---- the superstep and the loop, the kernel's way ----
+
+class Emulated:
+    """The kernel's state and its loop, node by node, in Python."""
+
+    def __init__(self, start, end, valid, capped, n, C, threads):
+        self.n, self.C, self.threads = n, C, threads
+        self.num_nodes = n + 3
+        R = start.shape[0]
+        G = len(chunks(n + 1, C))
+        self.arcs, self.off = (x.tolist() for x in kernel.kernel_arc_table(
+            start, end, valid, n))
+        self.hops = kernel.hop_tables(start, end + 1, valid, n, G, C)
+        cap_src, cap_snk, st = twin.preflow(capped, n, R)
+        self.cap_snk = cap_snk.tolist()
+        self.f = {"read": [0] * R, "chain": [0] * n, "src": cap_src.tolist(),
+                  "snk": [0] * (n + 1)}
+        self.excess, self.label = st.excess.tolist(), st.label.tolist()
+        self.step = self.relabels = self.rounds = 0
+
+    # kind -> (flow array, sign of a push)
+    KIND = {0: ("read", 1), 1: ("read", -1), 2: ("chain", 1), 3: ("chain", -1),
+            4: ("src", -1), 5: ("snk", -1), 6: ("snk", 1)}
+
+    def residual(self, kind, slot):
+        name = self.KIND[kind][0]
+        f = self.f[name][slot]
+        if kind == 0:
+            return 1 - f
+        if kind == 2:
+            return BIG - f
+        return self.cap_snk[slot] - f if kind == 6 else f
+
+    def global_relabel(self):
+        n, C = self.n, self.C
+        hop_f, range_f, hop_b, range_b = self.hops
+        cf = compact(hop_f, range_f, self.f["read"], False, C)
+        cb = compact(hop_b, range_b, self.f["read"], True, C)
+        flag = [int(i == n or self.f["chain"][i] == 0) for i in range(n + 1)]
+        dT0 = [1 if self.cap_snk[i] - self.f["snk"][i] > 0 else BIG for i in range(n + 1)]
+        dT, r1 = closure_kernel_way(dT0, flag, cf, cb, C, self.threads)
+        dS0 = [1 if self.f["src"][i] > 0 else BIG for i in range(n + 1)]
+        dS, r2 = closure_kernel_way(dS0, flag, cf, cb, C, self.threads)
+        for i in range(n + 1):
+            self.label[i] = dT[i] if dT[i] < BIG else (
+                self.num_nodes + dS[i] if dS[i] < BIG else 2 * self.num_nodes)
+        self.relabels += 1
+        self.rounds += r1 + r2
+
+    def superstep(self):
+        n, cap = self.n, 2 * self.num_nodes
+        lab_cur = list(self.label)  # the pre-wave buffer every walk reads
+        elig = [self.excess[v] > 0 and (lab_cur[v] & 1) == (self.step & 1)
+                for v in range(n + 1)]
+        acc_in = [0] * self.num_nodes
+        out = [0] * (n + 1)
+        written = set()
+        for v in (v for v in range(n + 1) if elig[v]):
+            a0, a1 = self.off[v], self.off[v + 1]
+            rem = self.excess[v]
+            for base in range(a0, a1, 32):
+                lanes = range(base, min(base + 32, a1))
+                want = []
+                for a in lanes:
+                    head, code = self.arcs[a]
+                    r = self.residual(code & 7, code >> 3)
+                    ok = lab_cur[v] == lab_cur[head] + 1
+                    # the label test passes only where no other node writes
+                    assert not ok or (self.KIND[code & 7][0], code >> 3) not in written
+                    want.append(r if ok and r > 0 else 0)
+                incl = np.cumsum(np.asarray(want, np.int64)).tolist()
+                for a, w, s in zip(lanes, want, incl):
+                    amt = min(max(rem - (s - w), 0), w)
+                    if amt > 0:
+                        head, code = self.arcs[a]
+                        name, sign = self.KIND[code & 7]
+                        key = (name, code >> 3)
+                        assert key not in written, f"flow slot {key} written twice in a wave"
+                        written.add(key)
+                        self.f[name][code >> 3] += sign * amt
+                        acc_in[head] += amt
+                rem -= incl[-1]
+                if rem <= 0:
+                    break
+            out[v] = self.excess[v] - max(rem, 0)
+        relabel = []
+        for v in range(n + 1):
+            self.excess[v] += acc_in[v] - out[v]
+            if elig[v] and out[v] == 0 and self.excess[v] > 0:
+                relabel.append(v)
+        for v in (n + 1, n + 2):
+            self.excess[v] += acc_in[v]
+        for v in relabel:  # the next buffer; heads from the pre-wave one
+            m = cap
+            for head, code in self.arcs[self.off[v]:self.off[v + 1]]:
+                if self.residual(code & 7, code >> 3) > 0:
+                    m = min(m, lab_cur[head])
+            self.label[v] = min(m + 1, cap)
+        self.step += 1
+
+    def active(self):
+        return any(x > 0 for x in self.excess[:self.n + 1])
+
+    def run(self, max_supersteps, relabel_every=25):
+        while self.active() and self.step < max_supersteps:
+            self.global_relabel()
+            budget = min(self.step + relabel_every, max_supersteps)
+            while self.active() and self.step < budget:
+                self.superstep()
+        return self
+
+
+@pytest.mark.parametrize("cap", [1, 2, 30, 200_000])
+@pytest.mark.parametrize("name", SUITE_CASES)
+def test_loop_kernel_way_equals_twin(name, cap):
+    start, end, valid, capped, n = flow_inputs(*flow_case(name))
+    stats = {}
+    st, steps, left = twin.push_relabel_run(start, end, valid, capped, n, max_supersteps=cap,
+                                            stats=stats)
+    C = 7 if name == "small_example" else 256
+    emu = Emulated(start, end, valid, capped, n, C, threads=4).run(cap)
+    assert emu.f["read"] == st.f_read.tolist()
+    assert emu.f["chain"] == st.f_chain.tolist()
+    assert emu.f["src"] == st.f_src.tolist()
+    assert emu.f["snk"] == st.f_snk.tolist()
+    assert emu.excess == st.excess.tolist() and emu.label == st.label.tolist()
+    assert emu.step == steps == stats["supersteps"]
+    assert sum(x for x in emu.excess[:n + 1] if x > 0) == left
+    assert (emu.relabels, emu.rounds) == (stats["global_relabels"], stats["closure_rounds"])
+
+
+def test_flow_solve_on_the_cpu_is_the_twin():
+    start, end, valid, capped, n = flow_inputs(*flow_case("seed1"))
+    st, left, counts = kernel.flow_solve(start, end, valid, capped, n, max_supersteps=40)
+    ref, steps, ref_left = twin.push_relabel_run(start, end, valid, capped, n,
+                                                 max_supersteps=40)
+    assert all(torch.equal(a, b) for a, b in zip(st, ref))
+    assert (left, counts["supersteps"]) == (ref_left, steps)
+    assert kernel.flow_solve.launches == 0
+
+
+def test_flow_solve_raises_on_other_devices():
+    start, end, valid, capped, n = (x.to("meta") if torch.is_tensor(x) else x
+                                    for x in flow_inputs(*flow_case("small_example")))
+    with pytest.raises(ValueError, match="no push-relabel solve for device meta"):
+        kernel.flow_solve(start, end, valid, capped, n)
+
+
+def test_launch_refuses_arguments_the_kernel_does_not_take():
+    start, end, valid, capped, n = flow_inputs(*flow_case("small_example"))
+    with pytest.raises(ValueError, match="capped: expected"):
+        kernel.prepare(start, end, valid, capped[:-1], n, 132)
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        kernel.launch(None, {}, 10, 0)
+
+
+@pytest.mark.parametrize("n,R,G,in_ws", [(11, 32, 1, False), (29_903, 53_248, 117, False),
+                                         (29_999, 2_000_000, 118, False),
+                                         (900_000, 40_960, 132, True)])
+def test_ws_words_matches_the_sources_layout(n, R, G, in_ws):
+    """The source states its workspace: kCtrlWords of control, kPartialWords
+    a CTA, kWsNodeArrays arrays of n + 3, 8-byte aligned, two tables of R
+    int2, then, where shared memory is short, each CTA's kNodeArrays arrays
+    of C rounded up to 4."""
+    text = SOURCE.read_text()
+    consts = dict(re.findall(r"\b(kCtrlWords|kPartialWords|kWsNodeArrays) = (\d+)", text))
+    ctrl, part, nodes = (int(consts[k]) for k in ("kCtrlWords", "kPartialWords",
+                                                  "kWsNodeArrays"))
+    assert (ctrl, part, nodes) == (kernel._CTRL_WORDS, kernel._PARTIAL_WORDS,
+                                   kernel._WS_NODE_ARRAYS)
+    arrays = int(re.search(r"constexpr int kNodeArrays = (\d+);", text).group(1))
+    assert arrays == kernel._KERNEL_NODE_ARRAYS
+    head = ctrl + part * G + nodes * (n + 3)
+    C = -(-(n + 1) // G)
+    per_cta = arrays * (-(-C // 4) * 4)
+    assert kernel._ws_words(n, R, G, False) == head + head % 2 + 4 * R
+    assert kernel._ws_words(n, R, G, True) == head + head % 2 + 4 * R + G * per_cta
+    # where the arrays go: shared memory while they fit in a CTA's 227 KB
+    assert (4 * per_cta > 232_448 - 1_024) == in_ws

@@ -42,6 +42,7 @@ required = {
     "genome_downsampler_tpu_torch.solvers.batched",
     "genome_downsampler_tpu_torch.solvers.device_sweep",
     "genome_downsampler_tpu_torch.ops.ssp",
+    "genome_downsampler_tpu_torch.ops.push_relabel",
     "genome_downsampler_tpu_torch.solvers.device_mcmf",
     "genome_downsampler_tpu_torch.solvers.push_relabel",
     "genome_downsampler_tpu_torch.utils.profiling",
