@@ -81,22 +81,26 @@ package. Phases, each of which raises on failure:
     the traces under ``build/profile/``.
 16. ``quasi-mcp-flow-cuda`` (push-relabel max-flow: one launch of the
     push-relabel kernel a solve, ``ops/csrc/push_relabel.cu``) through the
-    registry, warm, beside ``mcp-cpu``, at the 3,000-base cut, config-1 and
-    the reference's largest workload (1M pairs over 30,000 bases, M=1000):
-    one kernel launch and at most 2 host reads a solve, coverage valid and
-    fewer reads than given; on the same inputs the kernel's final flows,
-    excess, labels, step, excess left, global relabels and closure rounds
-    equal to its twin (the torch program of ``solvers/push_relabel.py``) on
-    the card, its read set to the solve's, and at the cut the solve's read
-    set and counts to the same solver on the CPU; the kernel timed (CUDA
-    events) beside its bound and the twin's time; us a closure round and a
+    registry, warm, beside ``mcp-cpu``, at the 3,000-base cut, config-1,
+    the reference's largest workload (1M pairs over 30,000 bases, M=1000)
+    and artic-1M-30kb (1M ARTIC amplicon pairs, M=1000, the reference's
+    users' data; its twin takes about a minute): one kernel launch and at
+    most 2 host reads a solve, coverage valid and fewer reads than given;
+    on the same inputs the kernel's final flows, excess, labels, step,
+    excess left, global relabels and closure rounds equal to its twin (the
+    torch program of ``solvers/push_relabel.py``) on the card, its read set
+    to the solve's, and at the cut the solve's read set and counts to the
+    same solver on the CPU; the reads, the distinct read arcs its hop
+    tables hold and the longest arc segment; the kernel timed (CUDA events)
+    beside its bound and the twin's time; us a closure round and a
     superstep from the kernel's own global-timer laps beside their bounds
-    (``FLOW_*``: a round d read and written once and each read's ends and
-    flow once; a superstep the arc table's columns and two label gathers
-    once an arc the walks need, which the kernel counts, and each node's
-    excess and label); the device's busy share of one traced cut solve
-    (``build/profile/flow/``); all also as one ``{"push_relabel": ...}``
-    JSON line;
+    (``FLOW_*``: a round d read and written once and each distinct read
+    arc's ends and flow once, or each read's, the "per read" bound of the
+    four-barrier kernel; a superstep the arc table's columns and two label
+    gathers once an arc the walks need, which the kernel counts, and each
+    node's excess and label); the device's busy share of one traced cut
+    solve (``build/profile/flow/``); all also as one ``{"push_relabel":
+    ...}`` JSON line;
 17. the mesh engines and ``--sharded`` (``parallel/``, over
     ``torch.distributed``): (a) one rank over NCCL in this process: the
     blocked mesh at config-4 (W_local=32, B=128, L=256), its read set
@@ -161,8 +165,10 @@ B, ``gd_blocked_sweep_wide``: kernel B's wide path, ``gd_blocked_select``:
 kernel C, ``gd_ssp_solve``: the SSP kernel, whose one-CTA version's entry
 is also taken; ``gd_sweep_variant_c`` and ``gd_sweep_variant_b`` together:
 the variants, one kernel of two entries; ``gd_blocked_ablate``: the
-ablation; the wide path's earlier entry, with an extra ``wide_tile``, is
-also taken). Each other source is built into its
+ablation; ``gd_push_relabel_solve``: the push-relabel kernel, whose
+four-barrier version's entry, which takes one hop-table row a read, is
+also taken with its own inputs; the wide path's earlier entry, with an
+extra ``wide_tile``, is also taken). Each other source is built into its
 own library under ``build/against/``, and the port's source of the same
 kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
 per instantiation are printed). Phases 1 and 2 run, then each version is
@@ -174,7 +180,8 @@ kernel B on the config-4 full pass and tail slice; the wide path on phase
 carries at grid offset 1), one full pass of each read set of phase 3c and
 the config-4 full pass; kernel C on the config-4 full pass; the SSP kernel on
 the 3,000-base cut, config-1 and the QMCP edge
-(once a turn there); the variants, C and B each, on the kernel_variants
+(once a turn there); the push-relabel kernel on phase 16's cells and the
+900,000-node workspace case (26 supersteps); the variants, C and B each, on the kernel_variants
 default row (n=30,208, L=256), its first 4,096 positions and an L=64 row,
 where the port's are first held to kernel A; the ablation, all seven modes,
 on the bench_kernel_ablate default (checked on its first 4 blocks and on
@@ -255,6 +262,16 @@ PROFILE_DIR = ROOT / "build" / "profile"
 # reference's largest workload (1M pairs over 30 kb, M=1000, its
 # coverage_tester's biggest; the JAX suite's test_reference_largest_workload_scale)
 FLOW_LARGEST = (1_000_000, 30_000, 1000)
+# and the shape of the reference's own users' data: 1M ARTIC SARS-CoV-2
+# amplicon pairs (testing/long_reads.py::artic_deep_30kb: 98 amplicons over
+# 29,903 bases, mates of 100-150 bp, about 10,200 first mates at each
+# primer start), M=1000, whose deep stacks give long arc segments and few
+# distinct read arcs
+FLOW_ARTIC = (1_000_000, 29_903, 1000)
+# phase 16's cells: (label, (pairs, genome, M), timed launches, read set)
+FLOW_CELLS = (("3,000-base cut", SSP_CUT, 5, "uniform"), ("config-1", C1, 3, "uniform"),
+              ("1M pairs over 30 kb", FLOW_LARGEST, 3, "uniform"),
+              ("artic-1M-30kb", FLOW_ARTIC, 1, "artic"))
 # bytes a superstep moves at the least: one read of the arc table's five
 # int32 columns and the two label gathers, 4 bytes each, per arc the run's
 # walks need (the eligible nodes' arcs up to the one that spends the
@@ -262,11 +279,14 @@ FLOW_LARGEST = (1_000_000, 30_000, 1000)
 # each line node's excess and label read and its label written; a round
 # of the distance closure: d read and written once (8 bytes a line node),
 # each read's start and end + 1 (int32) and its two residual flags (bool)
-# read once (10 bytes a read); the arc table's build: start and end read
-# once, the five int32 columns written once. Reads are the valid ones: the
-# padded reads' arcs are never residual
+# read once (10 bytes a read; the "per read" bound), or the same of each
+# distinct (start, end + 1) arc once (10 bytes an arc: equal arcs give one
+# hop value); the arc table's build: start and end read once, the five
+# int32 columns written once. Reads are the valid ones: the padded reads'
+# arcs are never residual
 FLOW_BYTES_PER_ARC, FLOW_STEP_BYTES_PER_NODE = 28, 12
 FLOW_ROUND_BYTES_PER_NODE, FLOW_ROUND_BYTES_PER_READ = 8, 10
+FLOW_ROUND_BYTES_PER_DISTINCT_ARC = 10
 FLOW_TABLE_BYTES_PER_READ, FLOW_TABLE_BYTES_PER_ARC = 8, 20
 # phase 17: the blocked mesh's windows a rank and block at config-4 (one
 # rank: kernel B's config-4 geometry), the CLI cells (pairs of 150 bp reads,
@@ -730,36 +750,67 @@ def turns_ssp(dev, c4):
     return checks, timed
 
 
-def flow_cell_inputs(dev, pairs, n, m):
+def flow_batch(kind, pairs, n):
+    """A flow cell's reads: 150 bp pairs with uniform starts, or ARTIC
+    amplicon pairs (``testing/long_reads.py::artic_deep_30kb``), seed
+    12345."""
+    if kind == "artic":
+        import numpy as np
+
+        from genome_downsampler_tpu_torch.testing.long_reads import artic_deep_30kb
+
+        return artic_deep_30kb(np.random.default_rng(SEED), pairs=pairs)
+    return uniform_batch(pairs, n)
+
+
+def flow_cell_inputs(dev, pairs, n, m, kind="uniform"):
     """A flow cell's batch and the push-relabel kernel's inputs on the
     card, as quasi-mcp-flow-cuda builds them (reads padded to 4,096)."""
     from genome_downsampler_tpu_torch.testing.flow_cases import flow_inputs
 
-    batch = uniform_batch(pairs, n)
+    batch = flow_batch(kind, pairs, n)
     return batch, flow_inputs(batch, m, 4096, dev)
 
 
+def hop_stats(prep):
+    """``(valid reads, distinct (start, end + 1) arcs, the most a CTA
+    holds, the longest arc segment)`` of the port's ``prepare`` output."""
+    fwd = prep["hop_f"]
+    off = prep["off"]
+    return (int(fwd.range[-1]), int(fwd.grange[-1]),
+            int((fwd.grange[1:] - fwd.grange[:-1]).max()), int((off[1:] - off[:-1]).max()))
+
+
 def turns_push_relabel(dev, c4):
-    """The push-relabel kernel's cells: the 3,000-base cut, config-1 and 1M
-    pairs over 30 kb, the six state arrays and (step, excess left, global
-    relabels, closure rounds) bit-equal on each; timed a round."""
+    """The push-relabel kernel's cells: phase 16's (the 3,000-base cut,
+    config-1, 1M pairs over 30 kb, artic-1M-30kb) and the 900,000-node
+    workspace case of the card tests (max_supersteps 26, as they run it),
+    the six state arrays and (step, excess left, global relabels, closure
+    rounds) bit-equal on each; timed a round. Each source gets its own
+    inputs: the four-barrier source's entry (25 arguments) the per-read hop
+    tables, the port's the groups (``scripts/flow_round_split.py``)."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import build
-    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+    from genome_downsampler_tpu_torch.scripts import flow_round_split as frs
+    from genome_downsampler_tpu_torch.testing.flow_cases import LARGE_CASE, flow_case, flow_inputs
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def run(lib, prep):
-        *state, scalars = pr.launch(lib, prep, 200_000, 25)
+    def run(lib, preps, cap):
+        *state, scalars = frs.launch(lib, preps[frs.lib_per_read(lib)], cap, 25)
         return [*state, scalars[:4]]
 
+    cells = [(label, flow_cell_inputs(dev, *cell, kind)[1], 200_000, reps)
+             for label, cell, reps, kind in FLOW_CELLS]
+    batch, m, pad = flow_case(LARGE_CASE)
+    cells.append(("900,000 nodes (workspace, 26 supersteps)", flow_inputs(batch, m, pad, dev),
+                  26, 1))
     checks, timed = [], {}
-    for name, cell, reps in (("3,000-base cut", SSP_CUT, 5), ("config-1", C1, 3),
-                             ("1M pairs over 30 kb", FLOW_LARGEST, 3)):
-        prep = pr.prepare(*flow_cell_inputs(dev, *cell)[1], sms)
-        rounds = int(run(build.load_kernels(), prep)[-1][3])
-        go = lambda lib, p=prep: run(lib, p)  # noqa: E731
+    for name, args, cap, reps in cells:
+        preps = {per: frs.prepare(per, *args, sms) for per in (True, False)}
+        rounds = int(run(build.load_kernels(), preps, cap)[-1][3])
+        go = lambda lib, p=preps, k=cap: run(lib, p, k)  # noqa: E731
         checks.append(go)
         timed[name] = (go, rounds, reps, "round")
     return checks, timed
@@ -923,12 +974,15 @@ AGAINST_ENTRIES = {"gd_sweep_variant": ("gd_sweep_variant_c", "gd_sweep_variant_
 def against_signature(path, entry):
     """The ctypes argument types of ``entry`` as the source at ``path``
     declares it: the port's, or an earlier version's of the same count
-    (the one-CTA SSP kernel's; the wide path's with ``wide_tile``)."""
+    (the one-CTA SSP kernel's; the wide path's with ``wide_tile``; the
+    four-barrier push-relabel kernel's per-read tables)."""
     from genome_downsampler_tpu_torch.ops import build
+    from genome_downsampler_tpu_torch.scripts.flow_round_split import PER_READ_SIGNATURE
     from genome_downsampler_tpu_torch.scripts.ssp_round_split import ONE_CTA_SIGNATURE
 
     earlier = {"gd_ssp_solve": [ONE_CTA_SIGNATURE],
-               "gd_blocked_sweep_wide": [WIDE_TILE_SIGNATURE]}
+               "gd_blocked_sweep_wide": [WIDE_TILE_SIGNATURE],
+               "gd_push_relabel_solve": [PER_READ_SIGNATURE]}
 
     decl = re.search(rf'extern\s+"C"\s+int\s+{entry}\s*\(([^)]*)\)', Path(path).read_text())
     nargs = decl.group(1).count(",") + 1
@@ -1831,28 +1885,34 @@ def phase_profile(dev, report):
     return shares
 
 
-def flow_bound(reads, n, stats):
+def flow_bound(reads, arcs, n, stats):
     """The push-relabel kernel's bound on this run (``stats``: the solve's
     counts): each closure round's and each superstep's bytes (``FLOW_*``)
-    once; returns ``(bound_ms, bound_by, round_ms, superstep_ms)``, the
-    last the mean over the run's supersteps."""
+    once, a round's with each valid read once (``reads``) or each distinct
+    read arc once (``arcs``); returns ``(bound_ms, bound_by, round_ms,
+    superstep_ms)`` per read, then ``(bound_ms, round_ms)`` per distinct
+    arc, the superstep the mean over the run's supersteps."""
     rounds, supersteps = stats["closure_rounds"], stats["supersteps"]
-    round_bytes = FLOW_ROUND_BYTES_PER_NODE * (n + 1) + FLOW_ROUND_BYTES_PER_READ * reads
+    node_bytes = FLOW_ROUND_BYTES_PER_NODE * (n + 1)
+    round_bytes = node_bytes + FLOW_ROUND_BYTES_PER_READ * reads
+    arc_round_bytes = node_bytes + FLOW_ROUND_BYTES_PER_DISTINCT_ARC * arcs
     step_bytes = (FLOW_BYTES_PER_ARC * (stats["arcs_discharged"] + stats["arcs_relabelled"])
                   + FLOW_STEP_BYTES_PER_NODE * (n + 1) * supersteps)
     return (*bound(0, rounds * round_bytes + step_bytes), bound(0, round_bytes)[0],
-            bound(0, step_bytes / max(supersteps, 1))[0])
+            bound(0, step_bytes / max(supersteps, 1))[0],
+            bound(0, rounds * arc_round_bytes + step_bytes)[0], bound(0, arc_round_bytes)[0])
 
 
 def phase_push_relabel(dev, report):
     """quasi-mcp-flow-cuda through the registry, warm, beside mcp-cpu, at
-    the 3,000-base cut, config-1 and 1M pairs over 30 kb: one push-relabel
-    kernel launch a solve, at most 2 host reads, coverage valid, the
-    selection smaller than the reads; on the same inputs the kernel equal to
-    its twin on the card (state, step, excess left, counts) and timed; at
-    the cut the solve equal to the CPU run; the card's busy share of one
-    traced cut solve. Returns the kernel's entry, the cells under
-    ``cells``."""
+    the 3,000-base cut, config-1, 1M pairs over 30 kb and artic-1M-30kb:
+    one push-relabel kernel launch a solve, at most 2 host reads, coverage
+    valid, the selection smaller than the reads; on the same inputs the
+    kernel equal to its twin on the card (state, step, excess left, counts)
+    and timed; the reads against the distinct read arcs the hop tables hold
+    and the longest arc segment; at the cut the solve equal to the CPU run;
+    the card's busy share of one traced cut solve. Returns the kernel's
+    entry, the cells under ``cells``."""
     import numpy as np
     import torch
 
@@ -1873,9 +1933,8 @@ def phase_push_relabel(dev, report):
     cut = uniform_batch(*SSP_CUT[:2])
     solver.solve(SSP_CUT[2], cut)  # warm
     out, errs = {}, []
-    for label, (pairs, n, m), reps in (("3,000-base cut", SSP_CUT, 5), ("config-1", C1, 3),
-                                       ("1M pairs over 30 kb", FLOW_LARGEST, 3)):
-        batch, args = flow_cell_inputs(dev, pairs, n, m)
+    for label, (pairs, n, m), reps, kind in FLOW_CELLS:
+        batch, args = flow_cell_inputs(dev, pairs, n, m, kind)
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1925,7 +1984,8 @@ def phase_push_relabel(dev, report):
         prep = pr.prepare(*args, sms)
         ms = best_ms(lambda: pr.launch(lib, prep, 200_000, 25), dev, reps)[1]
         rounds, supersteps = stats["closure_rounds"], stats["supersteps"]
-        b_ms, b_by, round_ms, step_ms = flow_bound(batch.n_reads, n, stats)
+        valid, arcs, arcs_cta, longest = hop_stats(prep)
+        b_ms, b_by, round_ms, step_ms, arc_b_ms, arc_round_ms = flow_bound(valid, arcs, n, stats)
         laps = stats["laps_s"]
         cell.update({k: stats[k] for k in ("supersteps", "bodies", "global_relabels",
                                            "closure_rounds", "host_syncs", "closure_ns",
@@ -1933,10 +1993,14 @@ def phase_push_relabel(dev, report):
                                            "superstep_cycles", "arcs_discharged",
                                            "arcs_relabelled")})
         cell.update(arcs=2 * batch.n_reads + 2 * n + 3 * (n + 1), laps_s=laps, ms=ms,
-                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ctas=prep["G"],
+                    plain_ms=plain_ms, bound_ms=arc_b_ms, bound_by=b_by,
+                    bound_ms_per_read=b_ms, ctas=prep["G"], valid_reads=valid,
+                    distinct_read_arcs=arcs, distinct_read_arcs_max_cta=arcs_cta,
+                    longest_segment=longest,
                     us_per_closure_round=stats["closure_ns"] / 1e3 / max(rounds, 1),
                     us_per_superstep=stats["superstep_ns"] / 1e3 / max(supersteps, 1),
-                    bound_us_per_closure_round=1e3 * round_ms,
+                    bound_us_per_closure_round=1e3 * arc_round_ms,
+                    bound_us_per_closure_round_per_read=1e3 * round_ms,
                     bound_us_per_superstep=1e3 * step_ms)
         out[label] = cell
         log(f"  {label}: quasi-mcp-flow-cuda {len(sel)} of {batch.n_reads} reads "
@@ -1946,10 +2010,13 @@ def phase_push_relabel(dev, report):
             + (f", read set and counts equal to the CPU run ({cell['cpu_solve_s']:.2f} s)"
                if "cpu_solve_s" in cell else "")
             + f"; warm solve {dt:.4f} s vs mcp-cpu {host_s:.4f} s; kernel {ms:.3f} ms on "
-            f"{prep['G']} CTAs (bound {b_ms:.4f} ms, {b_by}), twin on the card "
-            f"{plain_ms:.1f} ms; {cell['us_per_closure_round']:.3f} us a closure round "
-            f"(bound {1e3 * round_ms:.5f}), {cell['us_per_superstep']:.3f} us a superstep "
-            f"(bound {1e3 * step_ms:.5f})  [{report}]")
+            f"{prep['G']} CTAs (bound {arc_b_ms:.4f} ms a distinct arc, {b_ms:.4f} a read, "
+            f"{b_by}), twin on the card {plain_ms:.1f} ms; {valid} reads, {arcs} distinct "
+            f"read arcs (at most {arcs_cta} a CTA), longest arc segment {longest}; "
+            f"{cell['us_per_closure_round']:.3f} us a closure round (bound "
+            f"{1e3 * arc_round_ms:.5f} a distinct arc, {1e3 * round_ms:.5f} a read), "
+            f"{cell['us_per_superstep']:.3f} us a superstep (bound {1e3 * step_ms:.5f})  "
+            f"[{report}]")
         log(f"    laps: {json.dumps(laps)}")
         del args, prep
     # where a solve's wall time goes: the card's busy share of one cut solve
@@ -1975,7 +2042,7 @@ def phase_push_relabel(dev, report):
         "also_replaces": "genome_downsampler_tpu/solvers/push_relabel.py:316",
         "launches": c1["launches"], "max_abs_err": max(errs), "ms": c1["ms"],
         "plain_ms": c1["plain_ms"], "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"],
-        "library_ms": None,
+        "bound_ms_per_read": c1["bound_ms_per_read"], "library_ms": None,
         "timed_on": f"config-1: n={c1['n']}, {c1['reads']} reads, {c1['ctas']} CTAs, "
                     f"{c1['closure_rounds']} closure rounds, {c1['supersteps']} supersteps",
         "us_per_closure_round": c1["us_per_closure_round"],
@@ -2646,7 +2713,7 @@ def main(argv=None) -> int:
     ssp_entry["busy_share"] = phase_profile(dev, report)
     torch.cuda.empty_cache()
     phase("[16] quasi-mcp-flow-cuda (the push-relabel kernel) vs its twin: the "
-          "3,000-base cut, config-1, 1M pairs over 30 kb")
+          "3,000-base cut, config-1, 1M pairs over 30 kb, artic-1M-30kb")
     entries.append(phase_push_relabel(dev, report))
     torch.cuda.empty_cache()
     phase("[17] the mesh engines and --sharded on the card")

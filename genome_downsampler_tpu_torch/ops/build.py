@@ -57,10 +57,11 @@ _SIGNATURES = {
     #  rangeF, orderB, rangeB, flow, scalars, ws, n, B, R, G, capF, capB,
     #  phase_cap, stream)
     "gd_ssp_solve": [_P] * 15 + [_I] * 7 + [_P],
-    # (arcs, off, hopF, rangeF, hopB, rangeB, cap_src, cap_snk, excess0,
-    #  label0, f_read, f_chain, f_src, f_snk, excess, label, scalars, ws,
-    #  n, R, G, max_supersteps, relabel_every, nodes_in_ws, stream)
-    "gd_push_relabel_solve": [_P] * 18 + [_I] * 6 + [_P],
+    # (arcs, off, hopF, rangeF, grpF, grangeF, hopB, rangeB, grpB, grangeB,
+    #  cap_src, cap_snk, excess0, label0, f_read, f_chain, f_src, f_snk,
+    #  excess, label, scalars, ws, n, R, G, max_supersteps, relabel_every,
+    #  nodes_in_ws, stream)
+    "gd_push_relabel_solve": [_P] * 22 + [_I] * 6 + [_P],
 }
 
 

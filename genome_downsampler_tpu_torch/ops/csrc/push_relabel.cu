@@ -14,42 +14,61 @@
 // What bounds it on the H100. The work is sequential: thousands of closure
 // rounds (12,299 at config-1: the read-arc hops on a shortest path, per
 // closure) and hundreds of supersteps, each needing every node's state
-// from the step before. A round moves about 8 bytes a node and 10 a read,
-// a superstep 28 bytes an arc at most: microseconds of the card's memory
-// rate, far below what a chain of grid-wide dependencies costs. So what
-// binds is the barriers a round must pass and the L2 round trips between
-// them, as in ssp.cu. The torch program it replaces paid about 25 kernel
-// launches and one host read a round.
+// from the step before. A round moves about 8 bytes a node and 10 a
+// distinct read arc, a superstep 28 bytes an arc at most: microseconds of
+// the card's memory rate, far below what a chain of grid-wide dependencies
+// costs. So what binds is the grid barriers a round must pass (about 2 us
+// each with their fold at config-1 on 117 CTAs) and the L2 round trips of
+// the hops' gathers.
 //
 // What the design does about it. One persistent cooperative grid of
 // G = min(SMs, ceil((n + 1) / 256)) CTAs of 256 threads (ops/ssp.py:
 // grid_shape); CTA c owns the line nodes [c C, (c + 1) C), C =
 // ceil((n + 1) / G), and keeps their d, labels, excess and flags in shared
 // memory for the whole solve (in its own region of the workspace where
-// C is too large for shared memory: above about 850,000 nodes on 132 SMs).
+// C is too large for shared memory: above about 840,000 nodes on 132 SMs).
 // The source S = n + 1 and sink T = n + 2 only receive flow; the last CTA
 // keeps their excess.
 //
-// A closure round is four grid barriers (grid_sync.cuh):
-//   1. each CTA publishes the min of its chunk's d(j) - j (the prefix-min
-//      scan's aggregate) and whether the last round lowered a node; it
-//      folds the CTAs before it into a carry and scans its chunk;
-//   2. the same for the reverse scan of d(j) + j, segmented where the
-//      chain carries no flow (the `_seg_min` combiner), folded from the
-//      CTAs after it;
-//   3. every CTA writes its d to snapshot 1; the forward hop
-//      d[start] <- min(d[start], d[end + 1] + 1) over residual reads reads
-//      only snapshot 1;
-//   4. snapshot 2 after the forward hop; the backward hop d[end + 1] <-
-//      min(d[end + 1], d[start] + 1) reads it (the Gauss-Seidel order of
-//      the twin: the round counts depend on it).
-// Both hops are tail-owned: each read's forward arc belongs to the CTA
-// owning its start, its backward arc to the CTA owning end + 1, so each
-// node takes the min over its own arcs (atomicMin in shared memory, which
-// does not depend on order) and no global atomics are needed. At each
-// global relabel a CTA compacts its reads into the residual ones of each
-// direction (the flags do not change during the two closures). The stop
-// test, any(d < d0), rides on the next round's first barrier.
+// A closure round is two grid barriers (grid_sync.cuh).
+//   1. The record barrier. Each CTA scans its chunk with no carry: lp(i),
+//      the in-chunk prefix-min of the down keys d(j) - j, gives the
+//      carry-free downward closure D(i) = min(d(i), lp(i) + i); the
+//      reverse scan, segmented where the chain carries no flow (the
+//      `_seg_min` combiner), gives xs(i), the min of x(j) = min(D(j) + j,
+//      BIG) over j from i up to the end of i's run inside the chunk, and
+//      whether that run reaches the chunk's upper end. With the chunk's
+//      carry k (the min of the down keys of every chunk before it), the
+//      twin's closure is d'(i) = min(D(i), k + i) downward, and each up
+//      key d'(j) + j, saturated at BIG as the twin's last step saturates,
+//      is min(x(j), k + 2 j): so a chunk's up aggregate is
+//      min(X_c, k + 2 lo_c), X_c the carry-free one. Each CTA publishes
+//      one record (its down aggregate, its segment flag, X_c and whether
+//      the last round lowered a node) and, for every node, the words
+//      (D, xs, reaches the upper end). After the barrier every CTA reads
+//      all G records (one a thread), computes every chunk's carry with a
+//      block prefix-min, every chunk's up aggregate from it, and folds them
+//      segmented from the last chunk; from a node's words, its chunk's
+//      carry and its chunk's fold from above, any CTA has the node's
+//      post-closure d. The stop test, any(d < d0), rides on the record.
+//   2. Snapshot 2. The forward hop d[start] <- min(d[start], d[end + 1] +
+//      1) reads the post-closure d of other chunks' nodes from their
+//      published words (no snapshot: the words are rewritten only by the
+//      next round's record, behind this round's snapshot barrier); then
+//      every CTA writes its d to snapshot 2, and the backward hop d[end +
+//      1] <- min(d[end + 1], d[start] + 1) reads it (the Gauss-Seidel order
+//      of the twin: the round counts depend on it).
+// The records are double-buffered, because two record barriers follow one
+// another with no barrier between them where a pass has no hops.
+// Both hops are tail-owned and read tables of distinct arcs: the wrapper
+// groups the valid reads by (tail, other end) for each direction, and at
+// each global relabel a CTA compacts one entry a group of its tails with a
+// residual member (forward: a member with no flow; backward: a member with
+// flow), into shared memory where the CTA's groups fit (a template
+// argument; else its region of the workspace). A hop takes the min over
+// its arcs, so equal arcs give one value. Each node takes the min over its
+// own entries (atomicMin in shared memory, which does not depend on order)
+// and no global atomics are needed.
 //
 // A superstep is two grid barriers. Each eligible line node (excess > 0,
 // label parity == step parity) is walked by one warp along its arc segment
@@ -84,6 +103,10 @@
 
 #include "grid_sync.cuh"
 
+// the dynamic shared memory: a CTA's node arrays (unless in the workspace),
+// then its two hop tables
+extern __shared__ __align__(16) int32_t smem[];
+
 namespace {
 
 using gd::grid_sync;
@@ -91,12 +114,17 @@ using gd::ldcg;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kMaxCtas = kThreads;  // G <= kThreads: one record a thread
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int32_t BIG = 1 << 30;
 constexpr int32_t kNone = INT_MAX;  // identity of the min scans
 // shared int32 arrays of C entries each: d, dold, dT, flag, lab, ex, out,
-// elig, list
+// elig, list (the closure's dc, xs and reach share out, elig and list,
+// which only supersteps use)
 constexpr int kNodeArrays = 9;
+// a direction's compacted hop entries a CTA may hold in shared memory
+// beside its node arrays; more stay in the CTA's region of the workspace
+constexpr int kTabCapMax = 4096;
 
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -121,20 +149,18 @@ struct Shared {
   long long wl[kWarps];
   int cnt, cntF, cntB;
   unsigned bar_target;  // thread 0's count of grid barrier arrivals
+  // after the record barrier: every chunk's carry (the min of the down
+  // keys of the chunks before it), and every chunk's up aggregate, then
+  // the fold of the chunks after it (its reverse scan's carry)
+  int carry[kMaxCtas];
+  int up[kMaxCtas];
+  int upf[kMaxCtas];
 };
+// ops/push_relabel.py::_SMEM_BUDGET leaves this much of a CTA's shared
+// memory to it
+static_assert(sizeof(Shared) <= 4096, "Shared outgrew the wrapper's budget");
 
-// block-wide reductions; every thread gets the result
-__device__ int block_min(int v, Shared& sh) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(kFull, v, o));
-  if ((threadIdx.x & 31) == 0) sh.wv[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = sh.wv[0];
-  for (int w = 1; w < kWarps; ++w) v = min(v, sh.wv[w]);
-  __syncthreads();
-  return v;
-}
-
+// a block-wide sum; every thread gets the result
 __device__ long long block_sum(long long v, Shared& sh) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
@@ -215,15 +241,20 @@ struct Net {
   // is [off[v], off[v + 1])
   const int2* __restrict__ arcs;
   const int32_t* __restrict__ off;
-  // the valid reads by start and by end + 1: (tail, other end, read, 0);
-  // CTA c's share is [range[c], range[c + 1])
-  const int4* __restrict__ hopF;
+  // each direction's hop table: the valid reads sorted by (tail, other
+  // end), rows (read, group), CTA c's share [range[c], range[c + 1]); and
+  // the groups, rows (tail, other end), CTA c's [grange[c], grange[c + 1])
+  const int2* __restrict__ hopF;
   const int32_t* __restrict__ rangeF;
-  const int4* __restrict__ hopB;
+  const int2* __restrict__ grpF;
+  const int32_t* __restrict__ grangeF;
+  const int2* __restrict__ hopB;
   const int32_t* __restrict__ rangeB;
+  const int2* __restrict__ grpB;
+  const int32_t* __restrict__ grangeB;
   const int32_t* __restrict__ cap_src;  // int32[n + 1]
   const int32_t* __restrict__ cap_snk;  // int32[n + 1]
-  int n, R;
+  int n, R, tab_cap;
 };
 
 // the solve's state (outputs, written in place) and the workspace
@@ -231,18 +262,26 @@ struct Net {
 struct Glob {
   int32_t *f_read, *f_chain, *f_src, *f_snk, *excess, *labA;
   unsigned* bar;
-  // per-CTA partials, one array each so that no CTA overwrites one that
-  // another may still read
-  int32_t *aggA, *aggEf, *aggEv, *chg, *act;
+  // per-CTA partials: the records, two buffers of G (down aggregate,
+  // segment flag, up aggregate, lowered), the excess left, active
+  int4* rec;
   long long* left;
-  int32_t *labB, *in, *snap1, *snap2;
-  int2 *cf, *cb;  // the residual reads each CTA compacts at a global relabel
+  int32_t* act;
+  // each line node's closure words of the current round (D, xs, reach, 0)
+  int4* words;
+  int32_t *labB, *in, *snap2;
+  // the compacted hop entries of CTAs whose groups exceed shared memory,
+  // at the CTA's groups; a flag a group (residual this global relabel)
+  int2 *cf, *cb;
+  int32_t *flagF, *flagB;
 };
 
 // the CTA's line nodes; node arrays in shared memory
 struct Chunk {
-  int lo, cl, K;  // first node, nodes, items a thread holds in the scans
+  // first node, nodes, items a thread holds in the scans, C, n + 1
+  int lo, cl, K, C, n1;
   int32_t *d, *dold, *dT, *flag, *lab, *ex, *out, *elig, *list;
+  int32_t *dc, *xs, *reach;  // the closure's words (out, elig, list)
 };
 
 // ---- the distance closure ----
@@ -250,8 +289,9 @@ struct Chunk {
 __device__ __forceinline__ int32_t down_key(const Chunk& ch, int i) {
   return ch.d[i] >= BIG ? BIG : ch.d[i] - (ch.lo + i);
 }
-__device__ __forceinline__ int32_t up_key(const Chunk& ch, int i) {
-  return ch.d[i] >= BIG ? BIG : ch.d[i] + (ch.lo + i);
+// the carry-free up key of node i: min(D(i) + i, BIG)
+__device__ __forceinline__ int32_t x_key(const Chunk& ch, int i) {
+  return ch.dc[i] >= BIG ? BIG : min(ch.dc[i] + (ch.lo + i), BIG);
 }
 
 // this thread's min of d(j) - j over its nodes [tK, tK + K)
@@ -265,14 +305,18 @@ __device__ int down_items(const Chunk& ch) {
   return m;
 }
 
-// downward chain arcs: d(i) <= min_{j <= i} d(j) + (i - j); `run` the min
-// over the nodes before this thread's first, carry included
+// the carry-free downward closure D(i) = min(d(i), lp(i) + i) into dc, and
+// (kWs false) d into dold; `run` the in-chunk min over the nodes before
+// this thread's first
+template <bool kWs>
 __device__ void closure_down(const Chunk& ch, int run) {
   for (int j = 0; j < ch.K; ++j) {
     const int i = threadIdx.x * ch.K + j;
     if (i >= ch.cl) break;
+    const int32_t d = ch.d[i];
     run = min(run, down_key(ch, i));
-    ch.d[i] = min(ch.d[i], run >= BIG ? BIG : run + ch.lo + i);
+    if (!kWs) ch.dold[i] = d;
+    ch.dc[i] = min(d, run >= BIG ? BIG : run + ch.lo + i);
   }
 }
 
@@ -287,103 +331,137 @@ __device__ void up_items(const Chunk& ch, int& f, int& v) {
     const int q = threadIdx.x * ch.K + j;
     if (q >= ch.cl) break;
     const int i = ch.cl - 1 - q;
-    int fi = ch.flag[i], vi = up_key(ch, i);
+    int fi = ch.flag[i], vi = x_key(ch, i);
     seg_combine(f, v, fi, vi);
     f = fi;
     v = vi;
   }
 }
 
-// upward arcs within positive-chain-flow runs: d(i) <= min_{j >= i in run}
-// d(j) + (j - i); (ef, ev) the fold before this thread's first item
-__device__ void closure_up(const Chunk& ch, int ef, int ev) {
+// each node's in-chunk suffix xs and whether its run reaches the chunk's
+// upper end into the published words, and (kWs false) into shared memory;
+// (ef, ev) the fold before this thread's first item
+template <bool kWs>
+__device__ void publish_up(const Chunk& ch, const Glob& g, int ef, int ev) {
   for (int j = 0; j < ch.K; ++j) {
     const int q = threadIdx.x * ch.K + j;
     if (q >= ch.cl) break;
     const int i = ch.cl - 1 - q;
-    int fi = ch.flag[i], vi = up_key(ch, i);
+    int fi = ch.flag[i], vi = x_key(ch, i);
     seg_combine(ef, ev, fi, vi);
     ef = fi;
     ev = vi;
-    // the twin's quirk kept: a run that reaches nothing gives BIG - i
-    ch.d[i] = min(ch.d[i], (ev >= BIG ? BIG : ev) - (ch.lo + i));
+    if (!kWs) {
+      ch.xs[i] = ev;
+      ch.reach[i] = !ef;
+    }
+    __stcg(g.words + ch.lo + i, make_int4(ch.dc[i], ev, !ef, 0));
   }
 }
 
-// one hop: every compacted arc (tail in this chunk, other end) lowers
-// d[tail] to the snapshot's d[other] + 1
-__device__ void hop(const Chunk& ch, const int2* tab, int cnt, const int32_t* snap) {
-  for (int j = threadIdx.x; j < cnt; j += kThreads) {
-    const int2 e = __ldcg(tab + j);
-    const int32_t x = ldcg(snap + e.y);
-    if (x < BIG) atomicMin(&ch.d[e.x], x + 1);
-  }
+// Node gi's post-closure d from its words (dc, xs, reach), its chunk's
+// carry and its chunk's fold from above. The twin's quirk kept: a run that
+// reaches nothing gives BIG - gi.
+__device__ __forceinline__ int32_t closed(int32_t dc, int32_t xs, int reach, int carry, int above,
+                                          int gi) {
+  const int32_t down = carry >= BIG ? BIG : carry + gi;
+  int32_t sm = carry >= BIG ? xs : min(xs, carry + 2 * gi);
+  if (reach) sm = min(sm, above);
+  return min(min(dc, down), min(sm, BIG) - gi);
 }
 
-// each CTA's d into the snapshot `buf`, then the barrier
-__device__ void snapshot(const Chunk& ch, int32_t* buf, unsigned* bar, Shared& sh) {
-  for (int i = threadIdx.x; i < ch.cl; i += kThreads) buf[ch.lo + i] = ch.d[i];
-  grid_sync(bar, sh.bar_target);
+// an entry of a compacted hop table, in shared memory or the workspace
+template <bool kTabSmem>
+__device__ __forceinline__ int2 entry(const int2* tab, int j) {
+  return kTabSmem ? tab[j] : __ldcg(tab + j);
 }
 
 // The fixpoint from the seed in ch.d (the twin's dist_closure): one closure,
 // then rounds of (closure, forward hop, backward hop) until no node drops.
-// Returns the rounds.
-__device__ int closure(const Chunk& ch, const Glob& g, Shared& sh, int cntF, int cntB,
-                       const int2* cf, const int2* cb) {
+// `recbuf` alternates the record buffers over the whole solve. Returns the
+// rounds. With the node arrays in the workspace (kWs) a CTA copies d to
+// dold in node order and closes its chunk from its own published words,
+// read in node order, rather than from xs and reach: the scans write a
+// thread's run at a time, one warp's writes far apart in memory.
+template <bool kWs, bool kTabSmem>
+__device__ int closure(const Chunk& ch, const Glob& g, Shared& sh, int& recbuf, int cntF,
+                       int cntB, const int2* tf, const int2* tb) {
   const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x;
   int pass = 0, my_chg = 0;
   for (;;) {
-    for (int i = tid; i < ch.cl; i += kThreads) ch.dold[i] = ch.d[i];
-    __syncthreads();
-    // 1: the prefix scan's chunk aggregates and the last round's flags
+    if (kWs)
+      for (int i = tid; i < ch.cl; i += kThreads) ch.dold[i] = ch.d[i];
+    // the in-chunk scans, carry-free: the down aggregate, D, the up
+    // aggregate and each node's words
     int tot;
     const int ex_down = block_min_excl(down_items(ch), tot, sh);
-    if (tid == 0) {
-      g.aggA[c] = tot;
-      g.chg[c] = my_chg;
-    }
-    grid_sync(g.bar, sh.bar_target);
-    int carry = kNone, any = 0;
-    if (tid < G) {
-      any = ldcg(g.chg + tid);
-      if (tid < c) carry = ldcg(g.aggA + tid);
-    }
-    any = __syncthreads_or(any);
-    carry = block_min(carry, sh);
-    if (pass >= 2 && !any) break;
-    closure_down(ch, min(carry, ex_down));
+    closure_down<kWs>(ch, ex_down);
     __syncthreads();
-    // 2: the reverse scan, segmented at zero chain flow, carried from the
-    // CTAs after this one (the last CTA first)
-    int uf, uv, ef, ev, tf, tv;
+    int uf, uv, ef, ev, tfl, tv;
     up_items(ch, uf, uv);
-    block_seg_excl(uf, uv, ef, ev, tf, tv, sh);
-    if (tid == 0) {
-      g.aggEf[c] = tf;
-      g.aggEv[c] = tv;
-    }
+    block_seg_excl(uf, uv, ef, ev, tfl, tv, sh);
+    publish_up<kWs>(ch, g, ef, ev);
+    int4* rec = g.rec + recbuf * G;
+    recbuf ^= 1;
+    if (tid == 0) __stcg(rec + c, make_int4(tot, tfl, tv, my_chg));
+    // the record barrier
     grid_sync(g.bar, sh.bar_target);
-    int pf = 0, pv = kNone;
-    if (tid < G - 1 - c) {
-      pf = ldcg(g.aggEf + (G - 1 - tid));
-      pv = ldcg(g.aggEv + (G - 1 - tid));
+    const int4 r = tid < G ? __ldcg(rec + tid) : make_int4(kNone, 0, kNone, 0);
+    const int any = __syncthreads_or(r.w);
+    if (pass >= 2 && !any) break;
+    int all;
+    const int carry_t = block_min_excl(r.x, all, sh);
+    if (tid < G) {
+      sh.carry[tid] = carry_t;
+      // an empty chunk's (0, kNone) stays the fold's identity
+      sh.up[tid] = carry_t >= BIG || r.z == kNone
+                       ? r.z
+                       : min(r.z, carry_t + 2 * min(tid * ch.C, ch.n1));
+      sh.upf[tid] = r.y;
     }
-    int xf, xv, cf_, cv;
-    block_seg_excl(pf, pv, xf, xv, cf_, cv, sh);
-    seg_combine(cf_, cv, ef, ev);
-    closure_up(ch, ef, ev);
+    __syncthreads();
+    // every chunk's reverse-scan carry: thread u folds the chunks after
+    // chunk G - 1 - u, the last chunk first
+    int pf = 0, pv = kNone;
+    if (tid < G) {
+      pf = sh.upf[G - 1 - tid];
+      pv = sh.up[G - 1 - tid];
+    }
+    int xf, xv, af, av;
+    block_seg_excl(pf, pv, xf, xv, af, av, sh);
+    if (tid < G) sh.up[G - 1 - tid] = xv;
+    __syncthreads();
+    const int carry = sh.carry[c], above = sh.up[c];
+    for (int i = tid; i < ch.cl; i += kThreads) {
+      if (kWs) {
+        const int4 w = __ldcg(g.words + ch.lo + i);
+        ch.d[i] = closed(w.x, w.y, w.z, carry, above, ch.lo + i);
+      } else {
+        ch.d[i] = closed(ch.dc[i], ch.xs[i], ch.reach[i], carry, above, ch.lo + i);
+      }
+    }
     __syncthreads();
     if (pass == 0) {  // the closure before the first round
       pass = 1;
       continue;
     }
-    // 3, 4: the two hops, each from a snapshot of every CTA's d
-    snapshot(ch, g.snap1, g.bar, sh);
-    hop(ch, cf, cntF, g.snap1);
+    // the round's hops: forward from the other ends' published words
+    for (int j = tid; j < cntF; j += kThreads) {
+      const int2 e = entry<kTabSmem>(tf, j);
+      const int k = e.y / ch.C;
+      const int4 w = __ldcg(g.words + e.y);
+      const int32_t x = closed(w.x, w.y, w.z, sh.carry[k], sh.up[k], e.y);
+      if (x < BIG) atomicMin(&ch.d[e.x], x + 1);
+    }
     __syncthreads();
-    snapshot(ch, g.snap2, g.bar, sh);
-    hop(ch, cb, cntB, g.snap2);
+    // snapshot 2, then the backward hop from it
+    for (int i = tid; i < ch.cl; i += kThreads) g.snap2[ch.lo + i] = ch.d[i];
+    grid_sync(g.bar, sh.bar_target);
+    for (int j = tid; j < cntB; j += kThreads) {
+      const int2 e = entry<kTabSmem>(tb, j);
+      const int32_t x = ldcg(g.snap2 + e.y);
+      if (x < BIG) atomicMin(&ch.d[e.x], x + 1);
+    }
     __syncthreads();
     int lowered = 0;
     for (int i = tid; i < ch.cl; i += kThreads) lowered |= ch.d[i] < ch.dold[i];
@@ -393,27 +471,47 @@ __device__ int closure(const Chunk& ch, const Glob& g, Shared& sh, int cntF, int
   return pass - 1;
 }
 
-// Exact residual distances to T, then to S, and the labels from them
-// (written to the current buffer); returns the closure rounds.
-__device__ int global_relabel(const Net& net, const Glob& g, const Chunk& ch, Shared& sh,
-                              int32_t* lab_cur) {
-  const int tid = threadIdx.x, c = blockIdx.x, n = net.n;
-  const int num_nodes = n + 3;
-  // the residual reads of each direction, compacted (order is free: min)
-  const int f0 = net.rangeF[c], b0 = net.rangeB[c];
-  if (tid == 0) {
-    sh.cntF = 0;
-    sh.cntB = 0;
+// One direction's residual groups of this CTA, one entry each, into `tab`
+// (order is free: the hops take a min); `want_flow` picks the direction.
+// Returns the entries.
+__device__ int compact(const Glob& g, const Chunk& ch, Shared& sh, const int2* hop,
+                       const int32_t* range, const int2* grp, const int32_t* grange,
+                       int32_t* flag, bool want_flow, int2* tab) {
+  const int tid = threadIdx.x, c = blockIdx.x;
+  const int g0 = grange[c], g1 = grange[c + 1];
+  if (tid == 0) sh.cnt = 0;
+  for (int q = g0 + tid; q < g1; q += kThreads) __stcg(flag + q, 0);
+  __syncthreads();
+  for (int j = range[c] + tid; j < range[c + 1]; j += kThreads) {
+    const int2 e = hop[j];
+    if ((ldcg(g.f_read + e.x) > 0) == want_flow) __stcg(flag + e.y, 1);
   }
   __syncthreads();
-  for (int j = f0 + tid; j < net.rangeF[c + 1]; j += kThreads) {
-    const int4 e = net.hopF[j];
-    if (ldcg(g.f_read + e.z) == 0) g.cf[f0 + atomicAdd(&sh.cntF, 1)] = make_int2(e.x - ch.lo, e.y);
+  for (int q = g0 + tid; q < g1; q += kThreads) {
+    if (__ldcg(flag + q)) {
+      const int2 e = grp[q];
+      tab[atomicAdd(&sh.cnt, 1)] = make_int2(e.x - ch.lo, e.y);
+    }
   }
-  for (int j = b0 + tid; j < net.rangeB[c + 1]; j += kThreads) {
-    const int4 e = net.hopB[j];
-    if (ldcg(g.f_read + e.z) > 0) g.cb[b0 + atomicAdd(&sh.cntB, 1)] = make_int2(e.x - ch.lo, e.y);
-  }
+  __syncthreads();
+  const int cnt = sh.cnt;
+  __syncthreads();
+  return cnt;
+}
+
+// Exact residual distances to T, then to S, and the labels from them
+// (written to the current buffer); returns the closure rounds.
+template <bool kWs, bool kTabSmem>
+__device__ int global_relabel(const Net& net, const Glob& g, const Chunk& ch, Shared& sh,
+                              int32_t* lab_cur, int& recbuf, int2* tf, int2* tb) {
+  const int tid = threadIdx.x, n = net.n;
+  const int num_nodes = n + 3;
+  // the residual groups of each direction (the flags do not change during
+  // the two closures)
+  const int cntF = compact(g, ch, sh, net.hopF, net.rangeF, net.grpF, net.grangeF, g.flagF,
+                           false, tf);
+  const int cntB = compact(g, ch, sh, net.hopB, net.rangeB, net.grpB, net.grangeB, g.flagB,
+                           true, tb);
   // reverse-scan segment starts, and the seed of the distance to T
   for (int i = tid; i < ch.cl; i += kThreads) {
     const int gi = ch.lo + i;
@@ -421,15 +519,14 @@ __device__ int global_relabel(const Net& net, const Glob& g, const Chunk& ch, Sh
     ch.d[i] = sub32(net.cap_snk[gi], ldcg(g.f_snk + gi)) > 0 ? 1 : BIG;
   }
   __syncthreads();
-  const int cntF = sh.cntF, cntB = sh.cntB;
-  int rounds = closure(ch, g, sh, cntF, cntB, g.cf + f0, g.cb + b0);
+  int rounds = closure<kWs, kTabSmem>(ch, g, sh, recbuf, cntF, cntB, tf, tb);
   // nodes cut off from T route excess back to S
   for (int i = tid; i < ch.cl; i += kThreads) {
     ch.dT[i] = ch.d[i];
     ch.d[i] = ldcg(g.f_src + ch.lo + i) > 0 ? 1 : BIG;
   }
   __syncthreads();
-  rounds += closure(ch, g, sh, cntF, cntB, g.cf + f0, g.cb + b0);
+  rounds += closure<kWs, kTabSmem>(ch, g, sh, recbuf, cntF, cntB, tf, tb);
   for (int i = tid; i < ch.cl; i += kThreads) {
     const int32_t dT = ch.dT[i], dS = ch.d[i];
     const int32_t l = dT < BIG ? dT : (dS < BIG ? num_nodes + dS : 2 * num_nodes);
@@ -576,70 +673,24 @@ __device__ int superstep(const Net& net, const Glob& g, const Chunk& ch, Shared&
   return __syncthreads_or(tid < G ? ldcg(g.act + tid) : 0);
 }
 
-// kWs: the node arrays in the workspace (node_ws) instead of shared memory;
-// a template argument, so that the shared-memory instantiation keeps its
-// shared loads, stores and atomics (a pointer that may be either becomes a
-// generic one, and the hops' atomicMin twice as slow)
-template <bool kWs>
-__global__ void __launch_bounds__(kThreads, 1)
-    push_relabel_kernel(Net net, Glob g, const int32_t* __restrict__ excess0,
-                        const int32_t* __restrict__ label0, long long* __restrict__ scalars,
-                        int32_t max_supersteps, int32_t relabel_every, int32_t* node_ws) {
-  extern __shared__ __align__(16) int32_t smem[];
-  __shared__ Shared sh;
-  const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x, n = net.n;
-  if (tid == 0) sh.bar_target = 0;
-  const int n1 = n + 1;
-  const int C = (n1 + G - 1) / G, Cp = (C + 3) & ~3;
-  Chunk ch;
-  ch.lo = min(c * C, n1);
-  ch.cl = min(C, n1 - ch.lo);
-  ch.K = (ch.cl + kThreads - 1) / kThreads;
-  int32_t* a = kWs ? node_ws + static_cast<size_t>(c) * kNodeArrays * Cp : smem;
-  ch.d = a;
-  ch.dold = a + Cp;
-  ch.dT = a + 2 * Cp;
-  ch.flag = a + 3 * Cp;
-  ch.lab = a + 4 * Cp;
-  ch.ex = a + 5 * Cp;
-  ch.out = a + 6 * Cp;
-  ch.elig = a + 7 * Cp;
-  ch.list = a + 8 * Cp;
-  // the preflow: the wrapper's initial state (the twin's)
-  for (int r = c * kThreads + tid; r < net.R; r += G * kThreads) g.f_read[r] = 0;
-  int act = 0;
-  for (int i = tid; i < ch.cl; i += kThreads) {
-    const int gi = ch.lo + i;
-    if (gi < n) g.f_chain[gi] = 0;
-    g.f_src[gi] = net.cap_src[gi];
-    g.f_snk[gi] = 0;
-    g.in[gi] = 0;
-    ch.ex[i] = excess0[gi];
-    ch.lab[i] = label0[gi];
-    act |= ch.ex[i] > 0;
-  }
-  if (c == G - 1 && tid < 2) {  // S and T: their labels never change
-    const int v = n + 1 + tid;
-    g.excess[v] = excess0[v];
-    g.labA[v] = label0[v];
-    g.labB[v] = label0[v];
-    g.in[v] = 0;
-  }
-  act = __syncthreads_or(act);
-  if (tid == 0) g.act[c] = act;
-  if (c == 0 && tid == 0) scalars[8] = scalars[9] = 0;
-  grid_sync(g.bar, sh.bar_target);
-  int live = __syncthreads_or(tid < G ? ldcg(g.act + tid) : 0);
+// The solve's loop, with the hop tables in shared memory (kTabSmem) or in
+// the CTA's region of the workspace; returns (in the kernel's scalars) the
+// counts and laps.
+template <bool kWs, bool kTabSmem>
+__device__ void solve(const Net& net, const Glob& g, const Chunk& ch, Shared& sh, int live,
+                      int2* tf, int2* tb, long long* scalars, int32_t max_supersteps,
+                      int32_t relabel_every) {
+  const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x;
   int32_t* lab_cur = g.labA;
   int32_t* lab_next = g.labB;
-  int step = 0, relabels = 0;
+  int step = 0, relabels = 0, recbuf = 0;
   long long rounds = 0, walked[2] = {0, 0};
   unsigned long long ns_rl = 0, ns_ss = 0;
   long long cy_rl = 0, cy_ss = 0;
   while (live && step < max_supersteps) {
     const unsigned long long t0 = global_ns();
     const long long k0 = clock64();
-    rounds += global_relabel(net, g, ch, sh, lab_cur);
+    rounds += global_relabel<kWs, kTabSmem>(net, g, ch, sh, lab_cur, recbuf, tf, tb);
     ++relabels;
     const unsigned long long t1 = global_ns();
     const long long k1 = clock64();
@@ -692,15 +743,87 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// kWs: the node arrays in the workspace (node_ws) instead of shared memory;
+// a template argument, so that the shared-memory instantiation keeps its
+// shared loads, stores and atomics (a pointer that may be either becomes a
+// generic one, and the hops' atomicMin twice as slow). The hop tables'
+// place is chosen the same way, by each CTA: shared memory where both of
+// its directions' groups fit in net.tab_cap entries.
+template <bool kWs>
+__global__ void __launch_bounds__(kThreads, 1)
+    push_relabel_kernel(Net net, Glob g, const int32_t* __restrict__ excess0,
+                        const int32_t* __restrict__ label0, long long* __restrict__ scalars,
+                        int32_t max_supersteps, int32_t relabel_every, int32_t* node_ws) {
+  __shared__ Shared sh;
+  const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x, n = net.n;
+  if (tid == 0) sh.bar_target = 0;
+  const int n1 = n + 1;
+  const int C = (n1 + G - 1) / G, Cp = (C + 3) & ~3;
+  Chunk ch;
+  ch.lo = min(c * C, n1);
+  ch.cl = min(C, n1 - ch.lo);
+  ch.K = (ch.cl + kThreads - 1) / kThreads;
+  ch.C = C;
+  ch.n1 = n1;
+  int32_t* a = kWs ? node_ws + static_cast<size_t>(c) * kNodeArrays * Cp : smem;
+  ch.d = a;
+  ch.dold = a + Cp;
+  ch.dT = a + 2 * Cp;
+  ch.flag = a + 3 * Cp;
+  ch.lab = a + 4 * Cp;
+  ch.ex = a + 5 * Cp;
+  ch.out = a + 6 * Cp;
+  ch.elig = a + 7 * Cp;
+  ch.list = a + 8 * Cp;
+  ch.dc = ch.out;
+  ch.xs = ch.elig;
+  ch.reach = ch.list;
+  // the preflow: the wrapper's initial state (the twin's)
+  for (int r = c * kThreads + tid; r < net.R; r += G * kThreads) g.f_read[r] = 0;
+  int act = 0;
+  for (int i = tid; i < ch.cl; i += kThreads) {
+    const int gi = ch.lo + i;
+    if (gi < n) g.f_chain[gi] = 0;
+    g.f_src[gi] = net.cap_src[gi];
+    g.f_snk[gi] = 0;
+    g.in[gi] = 0;
+    ch.ex[i] = excess0[gi];
+    ch.lab[i] = label0[gi];
+    act |= ch.ex[i] > 0;
+  }
+  if (c == G - 1 && tid < 2) {  // S and T: their labels never change
+    const int v = n + 1 + tid;
+    g.excess[v] = excess0[v];
+    g.labA[v] = label0[v];
+    g.labB[v] = label0[v];
+    g.in[v] = 0;
+  }
+  act = __syncthreads_or(act);
+  if (tid == 0) g.act[c] = act;
+  if (c == 0 && tid == 0) scalars[8] = scalars[9] = 0;
+  grid_sync(g.bar, sh.bar_target);
+  const int live = __syncthreads_or(tid < G ? ldcg(g.act + tid) : 0);
+  const int ng = max(net.grangeF[c + 1] - net.grangeF[c], net.grangeB[c + 1] - net.grangeB[c]);
+  if (ng <= net.tab_cap) {
+    int2* tab = reinterpret_cast<int2*>(smem + (kWs ? 0 : kNodeArrays * Cp));
+    solve<kWs, true>(net, g, ch, sh, live, tab, tab + net.tab_cap, scalars, max_supersteps,
+                relabel_every);
+  } else {
+    solve<kWs, false>(net, g, ch, sh, live, g.cf + net.grangeF[c], g.cb + net.grangeB[c], scalars,
+                 max_supersteps, relabel_every);
+  }
+}
+
 }  // namespace
 
-// The workspace, int32 words: 16 of control (the barrier at 0), 8 G of
-// per-CTA partials (aggA, aggEf, aggEv, chg, act, one spare, then left as
-// G int64), 4 arrays of n + 3 (labB, in, snap1, snap2), then the two
-// compacted read tables of R int2 each, 8-byte aligned, then, with
-// nodes_in_ws, each CTA's kNodeArrays arrays of Cp = C rounded up to 4.
-// ops/push_relabel.py::_ws_words mirrors it.
-constexpr int64_t kCtrlWords = 16, kPartialWords = 8, kWsNodeArrays = 4;
+// The workspace, int32 words: 16 of control (the barrier at 0), 12 G of
+// per-CTA partials (the records, two buffers of G int4, then left as G
+// int64, then act), 7 words a node of n + 3 (the closure's words as int4,
+// then labB, in, snap2), 8-byte aligned, then 6 words a read: the two
+// compacted hop tables of R int2 each and the two group flags of R int32
+// each, then, with nodes_in_ws, each CTA's kNodeArrays arrays of Cp = C
+// rounded up to 4. ops/push_relabel.py::_ws_words mirrors it.
+constexpr int64_t kCtrlWords = 16, kPartialWords = 12, kWsNodeArrays = 7, kTableWords = 6;
 
 // Returns the cudaError_t of the launch (0 on success):
 // cudaErrorNotSupported without cooperative launch,
@@ -709,10 +832,12 @@ constexpr int64_t kCtrlWords = 16, kPartialWords = 8, kWsNodeArrays = 4;
 // whose node arrays exceed shared memory without nodes_in_ws, which puts
 // them in the workspace). arcs: int2[A] the tail-sorted
 // table (head, slot << 3 | kind); off: int32[n + 2] each line node's first
-// arc (off[n + 1] ends node n's segment); hopF, hopB: int4[R] the valid
-// reads by start and by end + 1 (tail, other end, read, 0), rangeF,
-// rangeB: int32[G + 1] each CTA's share (CTA c owns the nodes [c C,
-// c C + C), C = ceil((n + 1) / G)); cap_src, cap_snk: int32[n + 1];
+// arc (off[n + 1] ends node n's segment); hopF, hopB: int2[R] the reads
+// sorted by (start, end + 1) and by (end + 1, start), rows (read, group),
+// rangeF, rangeB: int32[G + 1] each CTA's share of the valid ones (CTA c
+// owns the nodes [c C, c C + C), C = ceil((n + 1) / G)); grpF, grpB:
+// int2[R] each group's (tail, other end) at its index, grangeF, grangeB:
+// int32[G + 1] each CTA's groups; cap_src, cap_snk: int32[n + 1];
 // excess0, label0: int32[n + 3] the preflow; f_read int32[R], f_chain
 // int32[n], f_src and f_snk int32[n + 1], excess and label int32[n + 3]:
 // the final state, out; scalars: int64[10] out (step, excess_left, global
@@ -720,15 +845,17 @@ constexpr int64_t kCtrlWords = 16, kPartialWords = 8, kWsNodeArrays = 4;
 // relabels, then inside supersteps, the arcs the discharges read, the arcs
 // the relabels read); ws: the workspace.
 extern "C" int gd_push_relabel_solve(const void* arcs, const void* off, const void* hopF,
-                                     const void* rangeF, const void* hopB, const void* rangeB,
-                                     const void* cap_src, const void* cap_snk,
-                                     const void* excess0, const void* label0, void* f_read,
-                                     void* f_chain, void* f_src, void* f_snk, void* excess,
-                                     void* label, void* scalars, void* ws, int64_t n, int64_t R,
-                                     int64_t G, int64_t max_supersteps, int64_t relabel_every,
+                                     const void* rangeF, const void* grpF, const void* grangeF,
+                                     const void* hopB, const void* rangeB, const void* grpB,
+                                     const void* grangeB, const void* cap_src,
+                                     const void* cap_snk, const void* excess0,
+                                     const void* label0, void* f_read, void* f_chain,
+                                     void* f_src, void* f_snk, void* excess, void* label,
+                                     void* scalars, void* ws, int64_t n, int64_t R, int64_t G,
+                                     int64_t max_supersteps, int64_t relabel_every,
                                      int64_t nodes_in_ws, void* stream) {
   if (n < 1 || n > (1 << 28) || R < 1 || R >= (1 << 28) || G < 1 || G > n + 1 ||
-      G > kThreads || max_supersteps < 0 || max_supersteps > INT_MAX || relabel_every < 1 ||
+      G > kMaxCtas || max_supersteps < 0 || max_supersteps > INT_MAX || relabel_every < 1 ||
       relabel_every > INT_MAX)
     return (int)cudaErrorInvalidValue;
   int dev = 0, coop = 0, sms = 0, optin = 0;
@@ -740,38 +867,50 @@ extern "C" int gd_push_relabel_solve(const void* arcs, const void* off, const vo
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
   const int64_t C = (n + G) / G, Cp = (C + 3) & ~int64_t(3);
-  const int64_t node_bytes = kNodeArrays * Cp * 4;
-  if (!nodes_in_ws && node_bytes > optin - int64_t(sizeof(Shared)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = nodes_in_ws ? 0 : static_cast<size_t>(node_bytes);
+  const int64_t node_bytes = nodes_in_ws ? 0 : kNodeArrays * Cp * 4;
+  const int64_t room = optin - int64_t(sizeof(Shared)) - node_bytes;
+  if (room < 0) return (int)cudaErrorInvalidValue;
+  // the hop tables' entries a direction in shared memory
+  const int64_t tab_cap = room / int64_t(2 * sizeof(int2)) < kTabCapMax
+                              ? room / int64_t(2 * sizeof(int2))
+                              : kTabCapMax;
+  const size_t smem_bytes = static_cast<size_t>(node_bytes + 2 * tab_cap * sizeof(int2));
   auto kernel = nodes_in_ws ? push_relabel_kernel<true> : push_relabel_kernel<false>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+                             static_cast<int>(smem_bytes));
   int per_sm = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   if (int64_t(per_sm) * sms < G) return (int)cudaErrorCooperativeLaunchTooLarge;
 
-  Net net{static_cast<const int2*>(arcs),      static_cast<const int32_t*>(off),
-          static_cast<const int4*>(hopF),      static_cast<const int32_t*>(rangeF),
-          static_cast<const int4*>(hopB),      static_cast<const int32_t*>(rangeB),
+  Net net{static_cast<const int2*>(arcs),       static_cast<const int32_t*>(off),
+          static_cast<const int2*>(hopF),       static_cast<const int32_t*>(rangeF),
+          static_cast<const int2*>(grpF),       static_cast<const int32_t*>(grangeF),
+          static_cast<const int2*>(hopB),       static_cast<const int32_t*>(rangeB),
+          static_cast<const int2*>(grpB),       static_cast<const int32_t*>(grangeB),
           static_cast<const int32_t*>(cap_src), static_cast<const int32_t*>(cap_snk),
-          static_cast<int>(n),                 static_cast<int>(R)};
+          static_cast<int>(n),                  static_cast<int>(R),
+          static_cast<int>(tab_cap)};
   int32_t* w = static_cast<int32_t*>(ws);
   const int64_t m = n + 3;
   int32_t* part = w + kCtrlWords;
-  int32_t* nodes = part + kPartialWords * G;
-  int2* tabs = reinterpret_cast<int2*>(
-      w + ((kCtrlWords + kPartialWords * G + kWsNodeArrays * m + 1) & ~int64_t(1)));
+  int4* words = reinterpret_cast<int4*>(part + kPartialWords * G);
+  int32_t* nodes = reinterpret_cast<int32_t*>(words + m);
+  int32_t* tabs_at = w + ((kCtrlWords + kPartialWords * G + kWsNodeArrays * m + 1) & ~int64_t(1));
+  int2* tabs = reinterpret_cast<int2*>(tabs_at);
+  int32_t* flags = reinterpret_cast<int32_t*>(tabs + 2 * R);
   Glob g{static_cast<int32_t*>(f_read), static_cast<int32_t*>(f_chain),
          static_cast<int32_t*>(f_src),  static_cast<int32_t*>(f_snk),
          static_cast<int32_t*>(excess), static_cast<int32_t*>(label),
          reinterpret_cast<unsigned*>(w),
-         part, part + G, part + 2 * G, part + 3 * G, part + 4 * G,
-         reinterpret_cast<long long*>(part + 6 * G),
-         nodes, nodes + m, nodes + 2 * m, nodes + 3 * m,
-         tabs, tabs + R};
+         reinterpret_cast<int4*>(part),
+         reinterpret_cast<long long*>(part + 8 * G),
+         part + 10 * G,
+         words,
+         nodes, nodes + m, nodes + 2 * m,
+         tabs, tabs + R,
+         flags, flags + R};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(w, 0, kCtrlWords * sizeof(int32_t), st);
   if (err != cudaSuccess) return (int)err;
@@ -780,11 +919,11 @@ extern "C" int gd_push_relabel_solve(const void* arcs, const void* off, const vo
   long long* sc = static_cast<long long*>(scalars);
   int32_t mss = static_cast<int32_t>(max_supersteps);
   int32_t rle = static_cast<int32_t>(relabel_every);
-  int32_t* node_ws = nodes_in_ws ? reinterpret_cast<int32_t*>(tabs + 2 * R) : nullptr;
+  int32_t* node_ws = nodes_in_ws ? tabs_at + kTableWords * R : nullptr;
   void* args[] = {&net, &g, &ex0, &lb0, &sc, &mss, &rle, &node_ws};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(static_cast<unsigned>(G)), dim3(kThreads), args, smem,
-                                    st);
+                                    dim3(static_cast<unsigned>(G)), dim3(kThreads), args,
+                                    smem_bytes, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

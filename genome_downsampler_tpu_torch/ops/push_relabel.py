@@ -12,35 +12,43 @@ of global relabels and closure rounds.
 
 The design (the source's note has the details). One grid of
 G = min(SMs, ceil((n + 1) / 256)) CTAs (``ops/ssp.py::grid_shape``); CTA c
-owns the line nodes ``[c C, (c + 1) C)`` in shared memory. A closure round
-is four grid barriers: a prefix-min scan of ``d(j) - j`` and a reverse scan
-of ``d(j) + j`` segmented at zero chain flow, each chunk-and-carry across
-CTAs, then the forward and the backward hop over the residual reads, each
-read's hop owned by the CTA of its tail and reading a snapshot of every
-CTA's d (above about 850,000 nodes on 132 SMs a CTA's node arrays lie in
-the workspace instead). A superstep is two: a warp walks each eligible node's segment of
-the tail-sorted arc table and pushes ``min(remaining, want)`` in table
-order, what reaches a head is added to it atomically; then each owner
-updates its excess and relabels into a second label buffer. The host reads
-once a solve: the scalars at the end.
+owns the line nodes ``[c C, (c + 1) C)`` in shared memory (above about
+840,000 nodes on 132 SMs a CTA's node arrays lie in the workspace instead).
+A closure round is two grid barriers. Before the first, each CTA scans its
+chunk with no carry (the prefix-min of ``d(j) - j`` and the reverse scan
+of ``d(j) + j`` segmented at zero chain flow) and publishes one record
+and three words a node; after it, every CTA folds all G records into every
+chunk's carries, closes its chunk and runs the forward hop, reading the
+post-closure d of other chunks' nodes from their words. The second barrier
+is the snapshot the backward hop reads. Each hop is owned by the CTA of
+its tail and reads a table of distinct arcs: one entry a ``(tail, other
+end)`` group of valid reads with a residual member, compacted at each
+global relabel into shared memory where the CTA's groups fit. A superstep
+is two barriers: a warp walks each eligible node's segment of the
+tail-sorted arc table and pushes ``min(remaining, want)`` in table order,
+what reaches a head is added to it atomically; then each owner updates its
+excess and relabels into a second label buffer. The host reads once a
+solve: the scalars at the end.
 
-What bounds it: the barriers a round must pass and the L2 round trips
-between them, not the bytes (about 8 a node and 10 a read a round, 28 an
-arc a superstep) nor the operations. The rounds themselves belong to the
-algorithm (12,299 at config-1), so even at its bound a solve stays far
-above the host greedy's time.
+What bounds it: the barriers a round must pass and the L2 round trips of
+the hops' gathers, not the bytes (about 8 a node and 10 a distinct read
+arc a round, 28 an arc a superstep) nor the operations. The rounds
+themselves belong to the algorithm (12,299 at config-1), so even at its
+bound a solve stays far above the host greedy's time.
 
 ``flow_solve`` launches the kernel on CUDA tensors (counted in
 ``flow_solve.launches``), runs the twin on CPU tensors, and raises on any
 other device. The wrapper builds the kernel's static tables with torch ops:
 the arc table without the padded reads' arcs (never residual, so never
-pushed on nor counted in a relabel) and each line node's first arc, and the
-valid reads sorted by start and by end + 1 with each CTA's share of them.
+pushed on nor counted in a relabel) and each line node's first arc, and
+for each hop direction the valid reads sorted by ``(tail, other end)``
+with their groups and each CTA's share of both.
 """
 
 from __future__ import annotations
 
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -57,12 +65,16 @@ BIG = 1 << 30
 _I32 = torch.int32
 # int32 arrays of C entries a CTA holds (csrc/push_relabel.cu:
 # kNodeArrays), in shared memory while they fit in the 227 KB a CTA may
-# hold on the H100
+# hold on the H100 beside the kernel's static 4 KB (its Shared)
 _KERNEL_NODE_ARRAYS = 9
-_SMEM_BUDGET = 232_448 - 1_024
+_SMEM_BUDGET = 232_448 - 4_096
+# a direction's compacted hop entries a CTA holds in shared memory at most
+# (csrc/push_relabel.cu: kTabCapMax); a CTA with more groups keeps its
+# tables in the workspace
+_TAB_CAP_MAX = 4096
 # the workspace's layout (csrc/push_relabel.cu: kCtrlWords, kPartialWords,
-# kWsNodeArrays)
-_CTRL_WORDS, _PARTIAL_WORDS, _WS_NODE_ARRAYS = 16, 8, 4
+# kWsNodeArrays, kTableWords)
+_CTRL_WORDS, _PARTIAL_WORDS, _WS_NODE_ARRAYS, _TABLE_WORDS = 16, 12, 7, 6
 
 
 def _node_words(n: int, G: int) -> int:
@@ -72,10 +84,12 @@ def _node_words(n: int, G: int) -> int:
 
 def _ws_words(n: int, R: int, G: int, nodes_in_ws: bool) -> int:
     """int32 words of the kernel's workspace: control, per-CTA partials,
-    four arrays of n + 3, then two tables of R int2, 8-byte aligned, then,
-    with ``nodes_in_ws``, every CTA's node arrays."""
+    seven words a node of n + 3, 8-byte aligned, then six a read (two
+    tables of R int2, two flag arrays of R), then, with ``nodes_in_ws``,
+    every CTA's node arrays."""
     head = _CTRL_WORDS + _PARTIAL_WORDS * G + _WS_NODE_ARRAYS * (n + 3)
-    return (head + 1) // 2 * 2 + 4 * R + (G * _node_words(n, G) if nodes_in_ws else 0)
+    return ((head + 1) // 2 * 2 + _TABLE_WORDS * R
+            + (G * _node_words(n, G) if nodes_in_ws else 0))
 
 
 def kernel_arc_table(start: torch.Tensor, end: torch.Tensor, read_valid: torch.Tensor,
@@ -93,23 +107,47 @@ def kernel_arc_table(start: torch.Tensor, end: torch.Tensor, read_valid: torch.T
     return table, torch.searchsorted(arcs.tails, nodes).to(_I32)
 
 
+class HopTable(NamedTuple):
+    """One hop direction's tables: the reads of each ``(tail, other end)``
+    group and the groups, each with every CTA's share."""
+
+    members: torch.Tensor  # int32[R, 2] (read, group), sorted by (tail, other end, read)
+    range: torch.Tensor  # int32[G + 1]: CTA c's valid members [range[c], range[c + 1])
+    groups: torch.Tensor  # int32[R, 2] (tail, other end) of group g at row g
+    grange: torch.Tensor  # int32[G + 1]: CTA c's groups [grange[c], grange[c + 1])
+
+
 def hop_tables(start: torch.Tensor, end1: torch.Tensor, read_valid: torch.Tensor, n: int,
                G: int, C: int):
-    """``(hopF, rangeF, hopB, rangeB)``: the valid reads sorted (stably) by
-    start and by end + 1, int32[R, 4] rows ``(tail, other end, read, 0)``,
-    and int32[G + 1] each CTA's share (``range[c]:range[c + 1]``, the reads
-    whose tail lies in ``[c C, c C + C)``); padded reads lie past every
-    share."""
+    """``(forward, backward)``: the ``HopTable`` of the reads by ``(start,
+    end + 1)`` and by ``(end + 1, start)``. Groups are numbered in key
+    order, so CTA c's (those whose tail lies in ``[c C, c C + C)``) are
+    contiguous, as are its members. Padded reads, and the rows past the
+    last group (tail ``n + 1``), lie past every share. Torch ops on the
+    device of ``start``, no host read."""
     dev = start.device
-    reads = torch.arange(start.shape[0], dtype=_I32, device=dev)
+    R = start.shape[0]
+    reads = torch.arange(R, dtype=_I32, device=dev)
     bounds = (torch.arange(G + 1, dtype=torch.int64, device=dev) * C).clamp(
         max=n + 1).to(_I32)
+    width = n + 2
+    pad = (n + 1) * width
     out = []
     for tail, other in ((start, end1), (end1, start)):
-        key, order = torch.sort(torch.where(read_valid, tail, n + 1), stable=True)
-        rows = torch.stack([tail[order], other[order], reads[order], torch.zeros_like(reads)], 1)
-        out += [rows.contiguous(), torch.searchsorted(key, bounds).to(_I32)]
-    return out
+        key = torch.where(read_valid, tail.long() * width + other.long(), pad)
+        key, order = torch.sort(key, stable=True)
+        first = torch.ones(R, dtype=torch.bool, device=dev)
+        first[1:] = key[1:] != key[:-1]
+        gid = (torch.cumsum(first, 0) - 1).to(_I32)
+        gkey = torch.full((R,), pad, dtype=torch.int64, device=dev).scatter_reduce(
+            0, gid.long(), key, "amin", include_self=False)
+        gtail = (gkey // width).to(_I32)
+        out.append(HopTable(
+            torch.stack([reads[order], gid], 1).contiguous(),
+            torch.searchsorted((key // width).to(_I32), bounds).to(_I32),
+            torch.stack([gtail, (gkey % width).to(_I32)], 1).contiguous(),
+            torch.searchsorted(gtail, bounds).to(_I32)))
+    return tuple(out)
 
 
 def _solve_args(start, end, read_valid, capped, n):
@@ -134,10 +172,10 @@ def prepare(start, end, read_valid, capped, n: int, sms: int) -> dict:
     R = _solve_args(start, end, read_valid, capped, n)
     G, C = grid_shape(n, sms)
     arcs, off = kernel_arc_table(start, end, read_valid, n)
-    hop_f, range_f, hop_b, range_b = hop_tables(start, end + 1, read_valid, n, G, C)
+    fwd, bwd = hop_tables(start, end + 1, read_valid, n, G, C)
     cap_src, cap_snk, st = preflow(capped, n, R)
-    return {"arcs": arcs, "off": off, "hop_f": hop_f, "range_f": range_f, "hop_b": hop_b,
-            "range_b": range_b, "cap_src": cap_src, "cap_snk": cap_snk,
+    return {"arcs": arcs, "off": off, "hop_f": fwd, "hop_b": bwd,
+            "cap_src": cap_src, "cap_snk": cap_snk,
             "excess0": st.excess, "label0": st.label, "n": n, "R": R, "G": G,
             # a CTA's node arrays in the workspace where shared memory is short
             "nodes_in_ws": 4 * _node_words(n, G) > _SMEM_BUDGET}
@@ -159,8 +197,8 @@ def launch(lib, prep: dict, max_supersteps: int, relabel_every: int):
     out = [torch.empty(m, dtype=_I32, device=dev) for m in (R, n, n + 1, n + 1, n + 3, n + 3)]
     scalars = torch.empty(10, dtype=torch.int64, device=dev)
     ws = torch.empty(_ws_words(n, R, G, prep["nodes_in_ws"]), dtype=_I32, device=dev)
-    ins = [prep[k] for k in ("arcs", "off", "hop_f", "range_f", "hop_b", "range_b", "cap_src",
-                             "cap_snk", "excess0", "label0")]
+    ins = [prep["arcs"], prep["off"], *prep["hop_f"], *prep["hop_b"],
+           *(prep[k] for k in ("cap_src", "cap_snk", "excess0", "label0"))]
     with torch.cuda.device(dev):
         rc = lib.gd_push_relabel_solve(
             *(x.data_ptr() for x in (*ins, *out, scalars, ws)),

@@ -13,6 +13,8 @@ from genome_downsampler_tpu_torch.testing.fixtures import (
     SMALL_EXAMPLE_MAX_COVERAGE,
     small_example_batch,
 )
+from genome_downsampler_tpu_torch.testing.long_reads import _batch as long_read_batch
+from genome_downsampler_tpu_torch.testing.long_reads import uniform_long_reads
 from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 
 #: tests/test_push_relabel.py's inputs: its small example and the random
@@ -22,8 +24,14 @@ SUITE_CASES = ("small_example", "seed0", "seed1")
 #: CTA, three full ones, four ragged ones (ops/ssp.py: grid_shape)
 BOUNDARY_CASES = ("n+1=767", "n+1=768", "n+1=769")
 #: a genome whose CTAs keep their node arrays in the kernel's workspace
-#: (more than about 850,000 line nodes on 132 SMs)
+#: (more than about 840,000 line nodes on 132 SMs)
 LARGE_CASE = "n=900000"
+#: reads of 1-120 bases over 4,000 bases, 60,000 on the first half and
+#: 2,000 on the second: about 6,800 distinct (start, end + 1) arcs a CTA on
+#: the first, more than the hop tables' shared memory holds
+#: (ops/push_relabel.py: _TAB_CAP_MAX), so those CTAs keep their tables in
+#: the workspace, and the others in shared memory
+WIDE_TABLES_CASE = "distinct arcs > shared tables"
 #: the superstep caps that stop the loop mid-block, at a global relabel,
 #: just after one, and at convergence (relabel_every 25)
 CAPS = (1, 2, 3, 24, 25, 26, 51, 200_000)
@@ -31,7 +39,7 @@ CAPS = (1, 2, 3, 24, 25, 26, 51, 200_000)
 
 def flow_case(name: str):
     """``(batch, M, pad_multiple)`` of one of ``SUITE_CASES``,
-    ``BOUNDARY_CASES`` or ``LARGE_CASE``."""
+    ``BOUNDARY_CASES``, ``LARGE_CASE`` or ``WIDE_TABLES_CASE``."""
     if name == "small_example":
         return small_example_batch(), SMALL_EXAMPLE_MAX_COVERAGE, 32
     if name in ("seed0", "seed1"):
@@ -43,6 +51,11 @@ def flow_case(name: str):
     if name == LARGE_CASE:
         n = int(name[2:])
         return rand_reads_uniform(np.random.default_rng(n), 20_000, n, 150), 3, 4096
+    if name == WIDE_TABLES_CASE:
+        rng = np.random.default_rng(2_000)
+        dense, sparse = (uniform_long_reads(rng, 2_000, r, 1, 120) for r in (60_000, 2_000))
+        return long_read_batch(np.concatenate([dense.start, sparse.start + 2_000]),
+                               np.concatenate([dense.end, sparse.end + 2_000]), 4_000), 40, 4096
     raise ValueError(name)
 
 

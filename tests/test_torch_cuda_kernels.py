@@ -30,6 +30,7 @@ from genome_downsampler_tpu_torch.testing.flow_cases import (
     BOUNDARY_CASES as FLOW_BOUNDARY_CASES,
     CAPS,
     LARGE_CASE,
+    WIDE_TABLES_CASE,
     SUITE_CASES,
     flow_case,
     flow_inputs,
@@ -1013,6 +1014,21 @@ def test_push_relabel_kernel_with_node_arrays_in_the_workspace_matches_twin(cuda
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert pr.prepare(*flow_inputs(batch, m, pad, cuda), sms)["nodes_in_ws"]
     _flow_equal(cuda, batch, m, pad, 26)
+
+
+def test_push_relabel_kernel_with_hop_tables_in_the_workspace_matches_twin(cuda):
+    """More distinct read arcs on half the CTAs than a CTA's shared memory
+    holds: their hop tables lie in the workspace, the others' in shared
+    memory."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    batch, m, pad = flow_case(WIDE_TABLES_CASE)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    prep = pr.prepare(*flow_inputs(batch, m, pad, cuda), sms)
+    groups = torch.maximum(*(t.grange[1:] - t.grange[:-1] for t in (prep["hop_f"], prep["hop_b"])))
+    assert int(groups.max()) > pr._TAB_CAP_MAX >= int(groups.min()) > 0
+    for cap in (26, 200_000):
+        _flow_equal(cuda, batch, m, pad, cap)
 
 
 def test_push_relabel_cuda_equals_cpu_at_the_3000_base_cut(cuda):

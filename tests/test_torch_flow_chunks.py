@@ -3,15 +3,22 @@ emulated in plain Python on the CPU and held equal to its twin
 (``solvers/push_relabel.py``) on seeded inputs.
 
 The distance closure: the kernel cuts the ``n + 1`` line nodes into chunks
-of C, one a CTA, and each chunk into runs of K nodes, one a thread. The
-prefix-min scan of ``d(j) - j`` and the reverse scan of ``d(j) + j``
-(segmented at zero chain flow) each publish every chunk's aggregate, fold
-the chunks before (in scan order) into a carry and scan their runs from
-it. The hops are owned by the tail's chunk, over the reads each chunk
-compacts from the wrapper's tables, and read two snapshots of d: the
-forward hop the one after the closure, the backward hop the one after the
-forward hop. Chunk sizes 1, 7, 256 and larger than n, with one and several
-nodes a thread, catch carry, segment and snapshot mistakes.
+of C, one a CTA, and each chunk into runs of K nodes, one a thread. Before
+a round's record barrier each chunk scans itself with no carry: the
+prefix-min of ``d(j) - j`` gives the carry-free downward closure D, the
+reverse scan of ``min(D(j) + j, BIG)`` (segmented at zero chain flow) each
+node's in-chunk suffix and whether its run reaches the chunk's upper end;
+it publishes one record (down aggregate, segment flag, up aggregate) and
+those words. After the barrier the records give every chunk's carry, its
+up aggregate ``min(X, carry + 2 lo)`` (saturated at BIG) and the fold of
+the chunks after it, and so any node's post-closure d from its words. The
+hops are owned by the tail's chunk, over one entry a residual ``(tail,
+other end)`` group: the forward hop reads the other end's post-closure d
+from its words, the backward hop a snapshot after the forward hop. Chunk
+sizes 1, 7, 256 and larger than n, with one and several nodes a thread,
+inputs full of BIG and seeds that reach nothing (the twin's ``BIG - i``),
+held round by round to a per-round reference that ends where
+``dist_closure`` ends.
 
 The superstep: a warp walks each eligible node's segment of the wrapper's
 arc table 32 arcs at a time, with an int64 prefix of what the admissible
@@ -35,6 +42,7 @@ from genome_downsampler_tpu_torch.solvers import push_relabel as twin
 from genome_downsampler_tpu_torch.testing.flow_cases import (
     BOUNDARY_CASES,
     SUITE_CASES,
+    WIDE_TABLES_CASE,
     flow_case,
     flow_inputs,
 )
@@ -86,63 +94,148 @@ def seg(prefix, item):
     return pf | f, v if f else min(pv, v)
 
 
-def compact(hop, rng, f_read, want_flow, C):
-    """Each chunk's residual reads of one direction, as the kernel compacts
-    them at a global relabel: (tail - lo, other end)."""
-    rows, bounds = hop.tolist(), rng.tolist()
+def compact(table, f_read, want_flow, C):
+    """Each chunk's residual groups of one direction (``kernel.HopTable``),
+    one entry a group with a residual member, as the kernel compacts them
+    at a global relabel: (tail - lo, other end)."""
+    members, rng, groups, grange = (x.tolist() for x in table)
     out = []
-    for c in range(len(bounds) - 1):
-        lo = c * C
-        out.append([(t - lo, o) for t, o, r, _ in rows[bounds[c]:bounds[c + 1]]
-                    if (f_read[r] > 0) == want_flow])
+    for c in range(len(rng) - 1):
+        residual = {g for r, g in members[rng[c]:rng[c + 1]] if (f_read[r] > 0) == want_flow}
+        out.append([(groups[g][0] - c * C, groups[g][1])
+                    for g in range(grange[c], grange[c + 1]) if g in residual])
     return out
+
+
+def publish(d, flag, C, threads):
+    """Each chunk's carry-free scans, as a CTA runs them before the record
+    barrier: its record (down aggregate, segment flag, up aggregate) and
+    each node's words (D, xs, reaches the chunk's upper end)."""
+    records, words = [], [None] * len(d)
+    for lo, hi in chunks(len(d), C):
+        keys = [BIG if d[i] >= BIG else d[i] - i for i in range(lo, hi)]
+        lp = scan_kernel_way(keys, [hi - lo], threads, min, NONE)
+        dc = [min(d[i], BIG if lp[i - lo] >= BIG else lp[i - lo] + i) for i in range(lo, hi)]
+        x = [BIG if dc[i - lo] >= BIG else min(dc[i - lo] + i, BIG) for i in range(lo, hi)]
+        # the reverse scan: each chunk's nodes from its last
+        items = [(flag[i], x[i - lo]) for i in range(hi - 1, lo - 1, -1)]
+        sm = scan_kernel_way(items, [hi - lo], threads, seg, (0, NONE))[::-1]
+        for i in range(lo, hi):
+            f, v = sm[i - lo]
+            words[i] = (dc[i - lo], v, int(not f))
+        records.append((min(keys), sm[0][0], sm[0][1]))
+    return records, words
+
+
+def fold_records(records, C):
+    """What every CTA computes from all records after the barrier: each
+    chunk's carry and the fold of the chunks after it (the last first) of
+    their up aggregates ``min(X, carry + 2 lo)``."""
+    carries, acc = [], NONE
+    for down, _, _ in records:
+        carries.append(acc)
+        acc = min(acc, down)
+    above, acc = [None] * len(records), (0, NONE)
+    for k in range(len(records) - 1, -1, -1):
+        above[k] = acc[1]
+        f, x = records[k][1:]
+        up = x if carries[k] >= BIG or x == NONE else min(x, carries[k] + 2 * k * C)
+        acc = seg(acc, (f, up))
+    return carries, above
+
+
+def closed(word, carry, above, i):
+    """Node i's post-closure d from its words (the kernel's ``closed``)."""
+    dc, xs, reach = word
+    down = BIG if carry >= BIG else carry + i
+    sm = xs if carry >= BIG else min(xs, carry + 2 * i)
+    if reach:
+        sm = min(sm, above)
+    return min(dc, down, min(sm, BIG) - i)
 
 
 def closure_kernel_way(d, flag, cf, cb, C, threads):
     """The fixpoint of the closure and the hops from seed ``d``, the
-    kernel's way; returns ``(d, rounds)``."""
-    d = list(d)
+    kernel's way; returns ``(d, rounds, trace)``, ``trace`` d after the
+    first closure and after each round."""
     n1 = len(d)
-    lens = [hi - lo for lo, hi in chunks(n1, C)]
+    lows = [lo for lo, _ in chunks(n1, C)]
 
     def close(d):
-        a = [BIG if d[i] >= BIG else d[i] - i for i in range(n1)]
-        pm = scan_kernel_way(a, lens, threads, min, NONE)
-        d = [min(d[i], BIG if pm[i] >= BIG else pm[i] + i) for i in range(n1)]
-        # the reverse scan: node n first, each chunk's nodes from its last
-        items = [(flag[i], BIG if d[i] >= BIG else d[i] + i) for i in range(n1 - 1, -1, -1)]
-        sm = scan_kernel_way(items, lens[::-1], threads, seg, (0, NONE))[::-1]
-        return [min(d[i], (BIG if sm[i][1] >= BIG else sm[i][1]) - i) for i in range(n1)]
+        carries, above = fold_records(*publish(d, flag, C, threads)[:1], C)
+        words = publish(d, flag, C, threads)[1]
+        post = [closed(words[i], carries[i // C], above[i // C], i) for i in range(n1)]
+        return post, words, carries, above
 
-    def hop(d, tables):
+    d = close(list(d))[0]
+    trace, rounds = [d], 0
+    while True:
+        d0 = d
+        d, words, carries, above = close(d)
+        for lo, table in zip(lows, cf):  # the other ends' words
+            for tl, o in table:
+                x = closed(words[o], carries[o // C], above[o // C], o)
+                if x < BIG:
+                    d[lo + tl] = min(d[lo + tl], x + 1)
         snap = list(d)
-        for c, (lo, _) in enumerate(chunks(n1, C)):
-            for tl, o in tables[c]:
+        for lo, table in zip(lows, cb):
+            for tl, o in table:
                 if snap[o] < BIG:
                     d[lo + tl] = min(d[lo + tl], snap[o] + 1)
+        rounds += 1
+        trace.append(d)
+        if not any(x < y for x, y in zip(d, d0)):
+            return d, rounds, trace
+
+
+def closure_rounds_reference(d, start, end1, rf, rb, flag):
+    """The twin's closure and hops, round by round, in numpy: d after the
+    first closure and after each round."""
+    d = np.asarray(d, np.int64)
+    idx = np.arange(d.shape[0])
+
+    def close(d):
+        pm = np.minimum.accumulate(np.where(d >= BIG, BIG, d - idx))
+        d = np.minimum(d, np.where(pm >= BIG, BIG, pm + idx))
+        out, acc = d.copy(), (0, NONE)
+        for i in range(d.shape[0] - 1, -1, -1):
+            acc = seg(acc, (flag[i], BIG if d[i] >= BIG else d[i] + i))
+            out[i] = min(d[i], min(acc[1], BIG) - i)
+        return out
+
+    def hops(d):
+        de, d = d, d.copy()
+        for s, e, ok in zip(start, end1, rf):
+            if ok and de[e] < BIG:
+                d[s] = min(d[s], de[e] + 1)
+        ds = d.copy()
+        for s, e, ok in zip(start, end1, rb):
+            if ok and ds[s] < BIG:
+                d[e] = min(d[e], ds[s] + 1)
         return d
 
     d = close(d)
-    rounds = 0
+    trace = [d.tolist()]
     while True:
-        d0 = d
-        d = hop(hop(close(d), cf), cb)
-        rounds += 1
-        if not any(x < y for x, y in zip(d, d0)):
-            return d, rounds
+        d0, d = d, hops(close(d))
+        trace.append(d.tolist())
+        if not (d < d0).any():
+            return trace
 
 
-def _closure_inputs(seed, chain):
+def _closure_inputs(seed, chain, seeds="mixed"):
     """tests/test_torch_push_relabel.py's closure inputs, with the reads'
-    flows and validity kept apart (rf = valid & no flow, rb = valid & flow)."""
+    flows and validity kept apart (rf = valid & no flow, rb = valid & flow);
+    ``seeds`` "big" is a d full of BIG, "cut off" one seed at node n with
+    no chain flow (most runs reach nothing: the twin's ``BIG - i``)."""
     rng = np.random.default_rng(seed)
     n, r = 400, 260
     start = rng.integers(0, n - 3, r).astype(np.int32)
     end1 = np.minimum(start + rng.integers(1, 60, r), n).astype(np.int32)
     fr = rng.random(r) < 0.4
     valid = rng.random(r) < 0.9
-    seeds = rng.random(n + 1)
-    d = np.where(seeds < 0.03, 1, np.where(seeds < 0.06, rng.integers(2, 90, n + 1), BIG))
+    draws = rng.random(n + 1)
+    d = np.where(draws < 0.03, 1, np.where(draws < 0.06, rng.integers(2, 90, n + 1), BIG))
     if chain == "zero":
         f_chain = np.zeros(n, np.int32)
     elif chain == "positive":
@@ -150,7 +243,31 @@ def _closure_inputs(seed, chain):
     else:
         f_chain = np.where(rng.random(n) < 0.15, 0, rng.integers(1, 5, n)) * (
             (np.arange(n) // 37) % 3 != 0)
+    if seeds == "big":
+        d = np.full(n + 1, BIG)
+    elif seeds == "cut off":
+        d = np.full(n + 1, BIG)
+        d[n] = 1
     return d.astype(np.int32), start, end1, fr, valid, f_chain.astype(np.int32)
+
+
+def _closure_both_ways(d, start, end1, fr, valid, f_chain, C, threads):
+    n = f_chain.shape[0]
+    ref, ref_rounds = twin.dist_closure(
+        torch.from_numpy(d), torch.from_numpy(start), torch.from_numpy(end1),
+        torch.from_numpy(valid & ~fr), torch.from_numpy(valid & fr), torch.from_numpy(f_chain))
+    flag = [int(i == n or f_chain[i] == 0) for i in range(n + 1)]
+    trace = closure_rounds_reference(d, start, end1, valid & ~fr, valid & fr, flag)
+    assert trace[-1] == ref.tolist() and len(trace) - 1 == ref_rounds
+    G = len(chunks(n + 1, C))
+    fwd, bwd = kernel.hop_tables(torch.from_numpy(start), torch.from_numpy(end1),
+                                 torch.from_numpy(valid), n, G, C)
+    f_read = fr.astype(int).tolist()
+    got, rounds, got_trace = closure_kernel_way(d.tolist(), flag, compact(fwd, f_read, False, C),
+                                                compact(bwd, f_read, True, C), C, threads)
+    for k, (a, b) in enumerate(zip(got_trace, trace)):
+        assert a == b, f"round {k}"
+    assert len(got_trace) == len(trace) and got == ref.tolist() and rounds == ref_rounds
 
 
 @pytest.mark.parametrize("C,threads", [(1, 256), (7, 256), (7, 2), (256, 256), (405, 256),
@@ -158,36 +275,65 @@ def _closure_inputs(seed, chain):
 @pytest.mark.parametrize("chain", ["zero", "positive", "runs"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_closure_chunked_equals_dist_closure(seed, chain, C, threads):
-    d, start, end1, fr, valid, f_chain = _closure_inputs(seed, chain)
-    n = f_chain.shape[0]
-    ref, ref_rounds = twin.dist_closure(
-        torch.from_numpy(d), torch.from_numpy(start), torch.from_numpy(end1),
-        torch.from_numpy(valid & ~fr), torch.from_numpy(valid & fr), torch.from_numpy(f_chain))
-    G = len(chunks(n + 1, C))
-    hop_f, range_f, hop_b, range_b = kernel.hop_tables(
-        torch.from_numpy(start), torch.from_numpy(end1), torch.from_numpy(valid), n, G, C)
-    f_read = fr.astype(int).tolist()
-    cf = compact(hop_f, range_f, f_read, False, C)
-    cb = compact(hop_b, range_b, f_read, True, C)
-    flag = [int(i == n or f_chain[i] == 0) for i in range(n + 1)]
-    got, rounds = closure_kernel_way(d.tolist(), flag, cf, cb, C, threads)
-    assert got == ref.tolist() and rounds == ref_rounds
+    _closure_both_ways(*_closure_inputs(seed, chain), C, threads)
+
+
+@pytest.mark.parametrize("C,threads", [(1, 256), (7, 2), (256, 256), (405, 64)])
+@pytest.mark.parametrize("chain", ["zero", "runs"])
+@pytest.mark.parametrize("seeds", ["big", "cut off"])
+def test_closure_chunked_equals_dist_closure_where_runs_reach_nothing(seeds, chain, C, threads):
+    _closure_both_ways(*_closure_inputs(2, chain, seeds), C, threads)
 
 
 def test_hop_tables_hold_each_valid_read_once_in_its_tails_chunk():
     _, start, end1, _, valid, _ = _closure_inputs(3, "runs")
     n, C = 400, 7
     G = len(chunks(n + 1, C))
-    hop_f, range_f, hop_b, range_b = kernel.hop_tables(
-        torch.from_numpy(start), torch.from_numpy(end1), torch.from_numpy(valid), n, G, C)
-    for hop, rng, tail, other in ((hop_f, range_f, start, end1), (hop_b, range_b, end1, start)):
-        rows, b = hop.numpy(), rng.tolist()
+    tables = kernel.hop_tables(torch.from_numpy(start), torch.from_numpy(end1),
+                               torch.from_numpy(valid), n, G, C)
+    for (members, rng, groups, _), tail, other in zip(tables, (start, end1), (end1, start)):
+        rows, b, grp = members.numpy(), rng.tolist(), groups.numpy()
         assert b[0] == 0 and b[-1] == int(valid.sum())
-        assert sorted(rows[:b[-1], 2].tolist()) == np.flatnonzero(valid).tolist()
-        np.testing.assert_array_equal(rows[:, 0], tail[rows[:, 2]])
-        np.testing.assert_array_equal(rows[:, 1], other[rows[:, 2]])
+        assert sorted(rows[:b[-1], 0].tolist()) == np.flatnonzero(valid).tolist()
+        np.testing.assert_array_equal(grp[rows[:b[-1], 1], 0], tail[rows[:b[-1], 0]])
+        np.testing.assert_array_equal(grp[rows[:b[-1], 1], 1], other[rows[:b[-1], 0]])
         for c in range(G):
-            assert all(c * C <= t < (c + 1) * C for t in rows[b[c]:b[c + 1], 0])
+            assert all(c * C <= t < (c + 1) * C for t in tail[rows[b[c]:b[c + 1], 0]])
+
+
+@pytest.mark.parametrize("C", [1, 7, 256])
+def test_hop_groups_hold_each_pair_once_in_its_tails_chunk_residual_iff_a_member_is(C):
+    _, start, end1, fr, valid, _ = _closure_inputs(4, "runs")
+    # pile reads onto a few pairs, as amplicon data does
+    start[::3], end1[::3] = 17, 60
+    n = 400
+    G = len(chunks(n + 1, C))
+    tables = kernel.hop_tables(torch.from_numpy(start), torch.from_numpy(end1),
+                               torch.from_numpy(valid), n, G, C)
+    f_read = fr.astype(int).tolist()
+    for table, tail, other, want_flow in zip(tables, (start, end1), (end1, start), (False, True)):
+        grp, gb = table.groups.numpy(), table.grange.tolist()
+        pairs = [tuple(p) for p in grp[gb[0]:gb[-1]].tolist()]
+        assert gb[0] == 0 and len(set(pairs)) == len(pairs)
+        assert set(pairs) == {(int(t), int(o)) for t, o, v in zip(tail, other, valid) if v}
+        for c in range(G):
+            assert all(c * C <= t < (c + 1) * C for t, _ in grp[gb[c]:gb[c + 1]].tolist())
+        residual = {(int(t), int(o)) for t, o, v, f in zip(tail, other, valid, f_read)
+                    if v and (f > 0) == want_flow}
+        got = compact(table, f_read, want_flow, C)
+        assert sorted((lo + t, o) for (lo, _), es in zip(chunks(n + 1, C), got)
+                      for t, o in es) == sorted(residual)
+    assert len(pairs) < int(valid.sum())  # the piled reads share a group
+
+
+def test_wide_tables_case_puts_some_ctas_tables_in_the_workspace():
+    """The card tests' case for the hop tables in the workspace: some CTAs
+    have more groups in a direction than shared memory holds, others
+    fewer, on 132 SMs."""
+    start, end, valid, capped, n = flow_inputs(*flow_case(WIDE_TABLES_CASE))
+    prep = kernel.prepare(start, end, valid, capped, n, 132)
+    groups = torch.maximum(*(t.grange[1:] - t.grange[:-1] for t in (prep["hop_f"], prep["hop_b"])))
+    assert int(groups.max()) > kernel._TAB_CAP_MAX >= int(groups.min()) > 0
 
 
 @pytest.mark.parametrize("name", SUITE_CASES + BOUNDARY_CASES)
@@ -242,14 +388,14 @@ class Emulated:
 
     def global_relabel(self):
         n, C = self.n, self.C
-        hop_f, range_f, hop_b, range_b = self.hops
-        cf = compact(hop_f, range_f, self.f["read"], False, C)
-        cb = compact(hop_b, range_b, self.f["read"], True, C)
+        fwd, bwd = self.hops
+        cf = compact(fwd, self.f["read"], False, C)
+        cb = compact(bwd, self.f["read"], True, C)
         flag = [int(i == n or self.f["chain"][i] == 0) for i in range(n + 1)]
         dT0 = [1 if self.cap_snk[i] - self.f["snk"][i] > 0 else BIG for i in range(n + 1)]
-        dT, r1 = closure_kernel_way(dT0, flag, cf, cb, C, self.threads)
+        dT, r1, _ = closure_kernel_way(dT0, flag, cf, cb, C, self.threads)
         dS0 = [1 if self.f["src"][i] > 0 else BIG for i in range(n + 1)]
-        dS, r2 = closure_kernel_way(dS0, flag, cf, cb, C, self.threads)
+        dS, r2, _ = closure_kernel_way(dS0, flag, cf, cb, C, self.threads)
         for i in range(n + 1):
             self.label[i] = dT[i] if dT[i] < BIG else (
                 self.num_nodes + dS[i] if dS[i] < BIG else 2 * self.num_nodes)
@@ -368,21 +514,27 @@ def test_launch_refuses_arguments_the_kernel_does_not_take():
                                          (900_000, 40_960, 132, True)])
 def test_ws_words_matches_the_sources_layout(n, R, G, in_ws):
     """The source states its workspace: kCtrlWords of control, kPartialWords
-    a CTA, kWsNodeArrays arrays of n + 3, 8-byte aligned, two tables of R
-    int2, then, where shared memory is short, each CTA's kNodeArrays arrays
-    of C rounded up to 4."""
+    a CTA, kWsNodeArrays words a node of n + 3, 8-byte aligned, kTableWords
+    a read (two tables of R int2, two flag arrays of R), then, where shared
+    memory is short, each CTA's kNodeArrays arrays of C rounded up to 4;
+    and the shared memory it leaves the node arrays."""
     text = SOURCE.read_text()
-    consts = dict(re.findall(r"\b(kCtrlWords|kPartialWords|kWsNodeArrays) = (\d+)", text))
-    ctrl, part, nodes = (int(consts[k]) for k in ("kCtrlWords", "kPartialWords",
-                                                  "kWsNodeArrays"))
-    assert (ctrl, part, nodes) == (kernel._CTRL_WORDS, kernel._PARTIAL_WORDS,
-                                   kernel._WS_NODE_ARRAYS)
+    consts = dict(re.findall(r"\b(kCtrlWords|kPartialWords|kWsNodeArrays|kTableWords) = (\d+)",
+                             text))
+    ctrl, part, nodes, table = (int(consts[k]) for k in ("kCtrlWords", "kPartialWords",
+                                                         "kWsNodeArrays", "kTableWords"))
+    assert (ctrl, part, nodes, table) == (kernel._CTRL_WORDS, kernel._PARTIAL_WORDS,
+                                          kernel._WS_NODE_ARRAYS, kernel._TABLE_WORDS)
     arrays = int(re.search(r"constexpr int kNodeArrays = (\d+);", text).group(1))
     assert arrays == kernel._KERNEL_NODE_ARRAYS
+    shared = int(re.search(r"static_assert\(sizeof\(Shared\) <= (\d+),", text).group(1))
+    assert kernel._SMEM_BUDGET == 232_448 - shared
+    cap = int(re.search(r"constexpr int kTabCapMax = (\d+);", text).group(1))
+    assert cap == kernel._TAB_CAP_MAX
     head = ctrl + part * G + nodes * (n + 3)
     C = -(-(n + 1) // G)
     per_cta = arrays * (-(-C // 4) * 4)
-    assert kernel._ws_words(n, R, G, False) == head + head % 2 + 4 * R
-    assert kernel._ws_words(n, R, G, True) == head + head % 2 + 4 * R + G * per_cta
+    assert kernel._ws_words(n, R, G, False) == head + head % 2 + table * R
+    assert kernel._ws_words(n, R, G, True) == head + head % 2 + table * R + G * per_cta
     # where the arrays go: shared memory while they fit in a CTA's 227 KB
-    assert (4 * per_cta > 232_448 - 1_024) == in_ws
+    assert (4 * per_cta > kernel._SMEM_BUDGET) == in_ws
