@@ -125,18 +125,37 @@ Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
 reads at L=1,024 and 4,096, from zero and seeded carries, timed; 70,000
 reads starting at one position; the config-4 full pass at L=256 called
 through the wide path, equal to the register path and timed beside it) and
-kernel C's run-time-L instantiation (L=1,024 and 4,096) to their twins.
+kernel C's run-time-L instantiation (L=1,024 and 4,096) to their twins,
+and both past L=4,096 (``WIDE_SPANS``: 4,224, 8,192, 16,128, 16,256,
+65,536 and 2,097,152, every tier of the wide path and kernel C's tile and
+hash path) on small passes (``testing.long_reads.long_span_pass``: W=2,
+B=128, 4 blocks a window, 300 reads with spans up to L-1), from zero
+carries with auto targets and from seeded carries at grid offset 1 with
+given targets, each timed beside its bound (``wide_bound``,
+``select_bound``); there, the wide path's tiers from the one it runs up
+(``blocked_sweep_wide(..., tier=t)``) and kernel C's tile and hash path
+where the tile fits (``path=``) are held bit-equal and timed in turns.
 Phase 3c is the wide path's main path: ``mcp-cuda-blocked`` warm against
-``mcp-cpu`` on the three read sets of ``testing/long_reads.py`` from seed
-12345, ``midnight-30kb`` (200,000 tiled 1,200-bp amplicon reads over 29,903
-bases, M=100: W=8, B=256, L=1,280), ``long-5mb`` (250,000 reads of
-1,000-3,000 bases over 5 Mb, M=50: W=64, B=128, L=3,072) and
+``mcp-cpu`` on the six read sets of ``testing/long_reads.py`` from seed
+12345, ``midnight-30kb`` (200,000 tiled 1,200-bp amplicon reads over
+29,903 bases, M=100: W=8, B=256, L=1,280), ``long-5mb`` (250,000 reads of
+1,000-3,000 bases over 5 Mb, M=50: W=64, B=128, L=3,072),
 ``artic-deep-30kb`` (7M pairs of 100-150 bp on 98 ARTIC amplicons, 71,428
-first mates starting at each primer site, M=1000: W=8, B=256, L=256, every
-pass on the wide path for its depth): read set equal, coverage valid, the
-wide path and kernel C launched and the register path not; the laps and
-rounds; on the solve's own last kernel C arguments, one full pass of the
-wide path and kernel C each held to its twin and timed (ns per position).
+first mates starting at each primer site, M=1000: W=8, B=256, L=256,
+every pass on the wide path for its depth), ``hiv-nfl-9kb`` (20,000
+PacBio reads of one near-full-length HIV-1 amplicon, 8,900-9,000 bases,
+M=100: W=1, B=128, L=9,088, tier 1), ``ont-wgs-5mb`` (45,528 Nanopore
+reads, log-normal lengths of median 8,000 up to 100,000 bases, 100x over 5
+Mb, M=50: W=32, B=128, L=100,096) and ``hifi-chr20`` (96,698 PacBio HiFi
+reads of 15,000-25,000 bases, 30x over chr20's 64,444,167 bases, M=20:
+W=64, B=128, L=25,088): read set equal, coverage valid, the wide path and
+kernel C launched and the register path not; the laps and rounds; on the
+solve's own last kernel C arguments, one full pass of the wide path and
+kernel C each timed (ns per position); kernel C held to its twin on the
+whole pass, the wide path on the whole pass up to L=4,096 and on the
+first window's first ``WIDE_CUT_BLOCKS`` blocks above, neither twin's
+result empty; past L=4,096 the tiers and kernel C's paths in turns on the
+full pass, as in phase 3b.
 
 Each path is driven with every launch count set to 0 just before it and
 read just after; each phase prints its wall time. Phases 7-9 also record
@@ -177,8 +196,11 @@ port, other) at its kernel's cells: kernel A at config-1 (counts and takes
 mode), the edge and 32 rows of 32,768 positions at config-4's depth;
 kernel B on the config-4 full pass and tail slice; the wide path on phase
 3b's passes at L=1,024 and 4,096 and its deep stack (also from seeded
-carries at grid offset 1), one full pass of each read set of phase 3c and
-the config-4 full pass; kernel C on the config-4 full pass; the SSP kernel on
+carries at grid offset 1), one full pass of each read set of phase 3c up
+to L=4,096 (``TURNS_READ_SETS``) and the config-4 full pass (an earlier
+source's entry without the workspace takes L up to 4,096); kernel C on
+the config-4 full pass, phase 3b's passes at L=1,024 and 4,096 and each
+read set of ``TURNS_READ_SETS``; the SSP kernel on
 the 3,000-base cut, config-1 and the QMCP edge
 (once a turn there); the push-relabel kernel on phase 16's cells and the
 900,000-node workspace case (26 supersteps); the variants, C and B each, on the kernel_variants
@@ -237,9 +259,19 @@ SWEEP_OPS = 8
 # empties a slot, or the slot's clear, is paid once per read that filled it)
 WIDE_POSITION_OPS, WIDE_READ_OPS = 8, 6
 # the read sets of phase 3c, the wide path's main path (testing/long_reads.py),
-# and their M
+# and their M; the first three reach L <= 4,096, which --against times
 WIDE_READ_SETS = {"midnight-30kb": ("midnight_30kb", 100), "long-5mb": ("long_5mb", 50),
-                  "artic-deep-30kb": ("artic_deep_30kb", 1000)}
+                  "artic-deep-30kb": ("artic_deep_30kb", 1000),
+                  "hiv-nfl-9kb": ("hiv_nfl_9kb", 100),
+                  "ont-wgs-5mb": ("ont_wgs_5mb", 50), "hifi-chr20": ("hifi_chr20", 20)}
+TURNS_READ_SETS = ("midnight-30kb", "long-5mb", "artic-deep-30kb")
+# phase 3b's spans past L = 4,096 (each tier of the wide path, kernel C's
+# tile and hash path; 2,097,152 puts the tree in the workspace), on
+# long_span_pass's small passes
+WIDE_SPANS = (4224, 8192, 16128, 16256, 65536, 1 << 21)
+# blocks of the first window the wide path's twin checks at phase 3c past
+# L = 4,096, where a full pass of that twin would take minutes
+WIDE_CUT_BLOCKS = 16
 # per selected-or-not read of kernel C: its start and end from the code,
 # the bucket's rank offset, the quota gather, the compare, the store
 SELECT_OPS = 8
@@ -297,9 +329,13 @@ SHARDED_W_LOCAL, SHARDED_BLOCK = 32, 128
 SHARDED_CLI = (3_000_000, 3_000_000, C4_M)
 SHARDED_QMCP = (100_000, 30_000, 100)
 MAX_INSERT = 600
-# gd_blocked_sweep_wide as its earlier sources declared it:
-# gd_blocked_sweep's arguments, then wide_tile
+# gd_blocked_sweep_wide as its earlier sources declared it: gd_blocked_sweep's
+# arguments, then wide_tile (the first); gd_blocked_sweep's arguments (up
+# to L = 4,096, without the workspace and the tier); gd_blocked_select
+# without the path (up to L = 4,096)
 WIDE_TILE_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
+WIDE_NO_WS_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
+SELECT_NO_PATH_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
 
 
 def log(*a):
@@ -554,7 +590,8 @@ def start_against_builds(paths):
 
 # one instantiation in ptxas -v's output: the kernel, its template arguments
 # (slots per lane and the target or takes mode, or the ablation's mode; L
-# for kernel C), spills and registers
+# for kernel C; the tier and auto targets for the wide path), spills and
+# registers
 PTXAS_ENTRY = re.compile(
     r"Compiling entry function '[^']*?(blocked_sweep_wide|blocked_sweep|dense_sweep|blocked_select"
     r"|sweep_variant|blocked_ablate|ssp|push_relabel)_kernel"
@@ -694,27 +731,52 @@ def turns_dense_sweep(dev, c4):
 
 
 def turns_blocked_select(dev, c4):
-    """Kernel C's cell: the config-4 full pass, on the windowed sweep's
-    selection."""
+    """Kernel C's cells: the config-4 full pass, on the windowed sweep's
+    selection; phase 3b's passes at L=1,024 and 4,096 (the run-time-L
+    instantiation); each read set of TURNS_READ_SETS on its solve's own
+    last kernel C arguments."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import blocked, build
+    from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
+        BlockedWindowedMcpSolver,
+        _cross_window_offsets,
+    )
 
+    cells = {}
     p32, cnt, W, B, L = c4["p32"], c4["counts"], c4["W"], c4["B"], c4["L"]
-    nbw, _, cap = p32.shape
     sel, _ = blocked.blocked_windowed_sweep(p32, cnt, None, W, B, L, auto_target=True,
                                             max_coverage=C4_M)
-    xwin = c4["xwin"]
+    cells["config-4"] = (p32, cnt, sel, c4["xwin"], W, B, L)
+    for cell, (p, c, W, B, L, win, m, start, end) in wide_cases(dev).items():
+        if cell.startswith("L="):
+            sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                                    max_coverage=m)
+            x = torch.tensor(_cross_window_offsets(start, end, win, W, B, L), device=dev)
+            cells[cell] = (p, c, sel, x, W, B, L)
+    for label in TURNS_READ_SETS:
+        batch, m = wide_read_batch(label)
+        with selection_calls() as calls:
+            BlockedWindowedMcpSolver("cuda").solve(m, batch)
+        del batch
+        cells[label] = calls[-1][0]
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def run(lib):
+    def run(lib, cell):
+        p, c, sel, x, W, B, L = cells[cell]
+        nbw, _, cap = p.shape
         out = torch.empty((nbw, W, cap), dtype=torch.int8, device=dev)
-        build.check("gd_blocked_select", lib.gd_blocked_select(
-            p32.data_ptr(), cnt.data_ptr(), sel.data_ptr(), xwin.data_ptr(),
-            out.data_ptr(), nbw, W, cap, B, L, stream))
+        fn = lib.gd_blocked_select
+        path = ([] if list(fn.argtypes) == SELECT_NO_PATH_SIGNATURE
+                else [int(blocked.select_path(B, L) == "hash")])
+        build.check("gd_blocked_select", fn(
+            p.data_ptr(), c.data_ptr(), sel.data_ptr(), x.data_ptr(),
+            out.data_ptr(), nbw, W, cap, B, L, *path, stream))
         return [out]
 
-    return [run], {"config-4": (run, nbw * B)}
+    return ([lambda lib, k=cell: run(lib, k) for cell in cells],
+            {cell: (lambda lib, k=cell: run(lib, k), v[0].shape[0] * v[5])
+             for cell, v in cells.items()})
 
 
 def turns_ssp(dev, c4):
@@ -817,22 +879,24 @@ def turns_push_relabel(dev, c4):
 
 
 def turns_blocked_sweep_wide(dev, c4):
-    """The wide path's cells: phase 3b's passes at L=1,024 and 4,096 and its
-    deep stack, one full pass of each read set of phase 3c on its solve's
-    codes (midnight-30kb: W=8, B=256, L=1,280; long-5mb: W=64, B=128,
-    L=3,072; artic-deep-30kb: W=8, B=256, L=256) and the config-4 full pass
-    (L=256), auto targets from zero carries; phase 3b's and artic-deep-30kb
-    also checked from seeded carries at grid offset 1. An other source whose
-    entry takes the earlier extra ``wide_tile`` gets 1 only where more
-    than 65,535 reads of a group start at one position: the int32 tile the
-    first wide source needs there (the later ones ignore it)."""
+    """The wide path's cells up to L = 4,096, which every source takes:
+    phase 3b's passes at L=1,024 and 4,096 and its deep stack, one full
+    pass of each read set of TURNS_READ_SETS on its solve's codes
+    (midnight-30kb: W=8, B=256, L=1,280; long-5mb: W=64, B=128, L=3,072;
+    artic-deep-30kb: W=8, B=256, L=256) and the config-4 full pass (L=256),
+    auto targets from zero carries; phase 3b's and artic-deep-30kb also
+    checked from seeded carries at grid offset 1. An other source whose
+    entry takes the earlier extra ``wide_tile`` gets 1 only where more than
+    65,535 reads of a group start at one position: the int32 tile the first
+    wide source needs there (the later ones ignore it); the port's entry
+    gets its workspace (none at these L)."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import blocked, build
     from genome_downsampler_tpu_torch.solvers.blocked_sweep import BlockedWindowedMcpSolver
 
     cells = {k: v[:7] for k, v in wide_cases(dev).items()}
-    for label in WIDE_READ_SETS:
+    for label in TURNS_READ_SETS:
         batch, m = wide_read_batch(label)
         with selection_calls() as calls:
             BlockedWindowedMcpSolver("cuda").solve(m, batch)
@@ -858,10 +922,17 @@ def turns_blocked_sweep_wide(dev, c4):
         out = [torch.empty((W, (nbw - off) * B), dtype=torch.int32, device=dev)]
         out += [torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)]
         fn = lib.gd_blocked_sweep_wide
-        tile = [deep[cell]] if len(fn.argtypes) == len(WIDE_TILE_SIGNATURE) else []
+        ws, extra = [], []
+        if list(fn.argtypes) == WIDE_TILE_SIGNATURE:
+            extra = [deep[cell]]
+        elif list(fn.argtypes) == build._SIGNATURES["gd_blocked_sweep_wide"]:
+            tier, _, words = blocked.wide_tier(B, L, True)
+            ws_t = torch.empty(max(W * words, 1), dtype=torch.int32, device=dev)
+            ws, extra = [ws_t.data_ptr() if words else None], [4 * W * words, tier]
         build.check("gd_blocked_sweep_wide", fn(
             c.data_ptr(), p.data_ptr(), None, *(x.data_ptr() for x in carries),
-            *(o.data_ptr() for o in out), nbw, W, cap, B, L, off, 1, m, *tile, stream))
+            *(o.data_ptr() for o in out), *ws, nbw, W, cap, B, L, off, 1, m, *extra,
+            stream))
         return out
 
     checks = [lambda lib, k=cell: run(lib, k, 0, False) for cell in cells]
@@ -974,14 +1045,16 @@ AGAINST_ENTRIES = {"gd_sweep_variant": ("gd_sweep_variant_c", "gd_sweep_variant_
 def against_signature(path, entry):
     """The ctypes argument types of ``entry`` as the source at ``path``
     declares it: the port's, or an earlier version's of the same count
-    (the one-CTA SSP kernel's; the wide path's with ``wide_tile``; the
+    (the one-CTA SSP kernel's; the wide path's with ``wide_tile`` or
+    without the workspace and the tier; kernel C's without the path; the
     four-barrier push-relabel kernel's per-read tables)."""
     from genome_downsampler_tpu_torch.ops import build
     from genome_downsampler_tpu_torch.scripts.flow_round_split import PER_READ_SIGNATURE
     from genome_downsampler_tpu_torch.scripts.ssp_round_split import ONE_CTA_SIGNATURE
 
     earlier = {"gd_ssp_solve": [ONE_CTA_SIGNATURE],
-               "gd_blocked_sweep_wide": [WIDE_TILE_SIGNATURE],
+               "gd_blocked_sweep_wide": [WIDE_TILE_SIGNATURE, WIDE_NO_WS_SIGNATURE],
+               "gd_blocked_select": [SELECT_NO_PATH_SIGNATURE],
                "gd_push_relabel_solve": [PER_READ_SIGNATURE]}
 
     decl = re.search(rf'extern\s+"C"\s+int\s+{entry}\s*\(([^)]*)\)', Path(path).read_text())
@@ -1039,10 +1112,7 @@ def phase_select(dev, c4, report):
     plain_ms = best_ms(
         lambda: blocked.blocked_selection_pass_plain(p32, cnt, sel, xwin, W, B, L), dev, 1
     )[1]
-    codes = int(cnt.sum())
-    bound_ms, bound_by = bound(
-        SELECT_OPS * codes,
-        4 * (codes + cnt.numel() + sel.numel() + xwin.numel()) + got.numel())
+    bound_ms, bound_by = select_bound(cnt, sel, xwin, got)
     log(f"  kernel C full config-4 pass: {ms:.3f} ms, plain twin {plain_ms:.3f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by})  [{report}]")
     return {
@@ -2199,6 +2269,129 @@ def phase_wide_sweep(dev, c4, report):
     }, max(sel_errs)
 
 
+def select_bound(cnt, sel, xwin, out):
+    """Kernel C's bound: each code, count, quota and cross-window offset
+    read once and each selection byte written once, SELECT_OPS a code."""
+    codes = int(cnt.sum())
+    return bound(SELECT_OPS * codes,
+                 4 * (codes + cnt.numel() + sel.numel() + xwin.numel()) + out.numel())
+
+
+def forced_turns(dev, runs, reps):
+    """Each of ``runs`` (``{name: fn}``: the first the tier or path the
+    wrapper picks, the others forced) bit-equal to the first, then all timed
+    in turns, first to last and back (CUDA events, the least of ``reps``
+    launches after a warm one). Returns ``{name: [ms, ms]}``."""
+    from genome_downsampler_tpu_torch.scripts import best_ms
+
+    names = list(runs)
+    first = runs[names[0]]()
+    for k in names[1:]:
+        max_abs_err(runs[k](), first)
+    del first
+    times = {k: [] for k in names}
+    for k in names + names[::-1]:
+        times[k].append(best_ms(runs[k], dev, reps)[1])
+    return times
+
+
+def tier_runs(blocked, args, kw, nat):
+    """The wide path's tiers from ``nat`` up on one pass, for ``forced_turns``."""
+    return {f"tier {t}": (lambda t=t: blocked.blocked_sweep_wide(*args, tier=t, **kw))
+            for t in range(nat, 4)}
+
+
+def path_runs(blocked, args):
+    """Kernel C's tile and hash path on one pass, for ``forced_turns``."""
+    return {p: (lambda p=p: [blocked.blocked_selection_pass(*args, path=p)])
+            for p in ("tile", "hash")}
+
+
+def turns_text(times):
+    return ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in ms) for k, ms in times.items())
+
+
+def phase_wide_spans(dev, report):
+    """Kernel B's wide path and kernel C past L = 4,096, at each of
+    WIDE_SPANS, against their twins on ``long_span_pass``'s small passes
+    (W=2, B=128, 4 blocks a window, 300 reads with spans up to L - 1): the
+    wide path from zero carries with auto targets and from seeded carries
+    (live over the whole ring) at grid offset 1 with given targets; kernel
+    C on the windowed sweep's selection; each timed (CUDA events) beside
+    its bound. Returns ``({"L=...": {...}}, max |err| of the wide path,
+    max |err| of kernel C)``."""
+    import numpy as np
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import blocked
+    from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.testing.long_reads import capped_coverage, long_span_pass
+
+    W, B, m = 2, 128, 9
+    out, errs, sel_errs = {}, [], []
+    for L in WIDE_SPANS:
+        start, end, packed, counts, win, xwin = long_span_pass(
+            np.random.default_rng(SEED + L), L, W, B)
+        p, c = torch.tensor(packed, device=dev), torch.tensor(counts, device=dev)
+        x = torch.tensor(xwin, device=dev)
+        z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+        kw = dict(avail0i=z, auto_target=True, max_coverage=m)
+        got = blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw)
+        torch.cuda.synchronize()
+        ref, plain_ms = best_ms(lambda: blocked.blocked_sweep_pass_plain(
+            p, c, None, z, z, W, B, L, **kw), dev, 1, warm=False)
+        errs.append(max_abs_err(got, ref))
+        g = torch.Generator().manual_seed(SEED + L)
+        seeded = [torch.randint(0, 4, (W, L), generator=g, dtype=torch.int32).to(dev)
+                  for _ in range(3)]
+        tgt = torch.tensor(capped_coverage(start, end, W * win, m).reshape(W, win),
+                           device=dev)
+        kw1 = dict(grid_offset=1, avail0i=seeded[2])
+        got = blocked.blocked_sweep_pass(p, c, tgt, *seeded[:2], W, B, L, **kw1)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, blocked.blocked_sweep_pass_plain(
+            p, c, tgt, *seeded[:2], W, B, L, **kw1)))
+        del ref, got, seeded
+        ms = best_ms(lambda: blocked.blocked_sweep_pass(p, c, None, z, z, W, B, L, **kw),
+                     dev)[1]
+        codes = int(c.sum())
+        b_ms, b_by, bytes_ms = wide_bound(codes, W, win, L, 4 * c.numel())
+        sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                                max_coverage=m)
+        got = blocked.blocked_selection_pass(p, c, sel, x, W, B, L)
+        torch.cuda.synchronize()
+        sel_ref, sel_plain_ms = best_ms(lambda: blocked.blocked_selection_pass_plain(
+            p, c, sel, x, W, B, L), dev, 1, warm=False)
+        sel_errs.append(max_abs_err([got], [sel_ref]))
+        sel_ms = best_ms(lambda: blocked.blocked_selection_pass(p, c, sel, x, W, B, L),
+                         dev)[1]
+        s_ms, s_by = select_bound(c, sel, x, got)
+        tier = blocked.wide_tier(B, L, True)
+        path = blocked.select_path(B, L)
+        tiers = forced_turns(dev, tier_runs(blocked, (p, c, None, z, z, W, B, L), kw,
+                                            tier[0]), 5)
+        paths = (forced_turns(dev, path_runs(blocked, (p, c, sel, x, W, B, L)), 5)
+                 if path == "tile" else None)
+        out[f"L={L}"] = {
+            "W": W, "B": B, "positions_per_window": win, "reads": len(start),
+            "tier": tier[0], "shared_bytes": tier[1], "workspace_bytes": 4 * W * tier[2],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes_bound_ms": bytes_ms, "select_ms": sel_ms, "select_plain_ms": sel_plain_ms,
+            "select_bound_ms": s_ms, "select_bound_by": s_by, "select_path": path,
+            "tier_turns": tiers, "select_path_turns": paths,
+        }
+        log(f"  L={L} (W={W}, B={B}, {win} positions a window, {len(start)} reads; wide "
+            f"path tier {tier[0]}, {tier[1]} B shared, {4 * W * tier[2]} B workspace): "
+            f"wide path == plain from zero and seeded carries, {ms:.4f} ms (bound "
+            f"{b_ms:.5f} ms, {b_by}; plain twin {plain_ms:.1f} ms); kernel C ({path}) == "
+            f"plain, {sel_ms:.4f} ms (bound {s_ms:.5f} ms, {s_by}; plain twin "
+            f"{sel_plain_ms:.1f} ms); in turns, each bit-equal: {turns_text(tiers)} ms"
+            + (f"; kernel C {turns_text(paths)} ms" if paths else "") + f"  [{report}]")
+        del p, c, x, z, sel, got, sel_ref
+        torch.cuda.empty_cache()
+    return out, max(errs), max(sel_errs)
+
+
 def wide_read_batch(label):
     """``(ReadBatch, M)`` of a read set of ``WIDE_READ_SETS``, from SEED."""
     import numpy as np
@@ -2226,8 +2419,14 @@ def phase_long_reads(dev, report):
     launched and the register path not; the laps and rounds. On the solve's
     own last kernel C arguments (packed codes, counts, selection,
     cross-window offsets): one full pass of the wide path from zero
-    carries and kernel C, each held to its twin and timed (ns per
-    position). Returns ``{cell: {...}}``."""
+    carries and kernel C, each timed (ns per position); kernel C held to
+    its twin on the whole pass, the wide path on the whole pass up to L =
+    4,096 and above on the first window's first WIDE_CUT_BLOCKS blocks (the
+    same kernel at the same L; the solve itself is held to mcp-cpu), each
+    twin's result not empty; past L = 4,096 the wide path's tiers from the
+    one it runs up, and kernel C's tile and hash path where the tile fits,
+    bit-equal and timed in turns on the full pass. Returns ``{cell:
+    {...}}``."""
     import torch
 
     from genome_downsampler_tpu_torch.ops import blocked
@@ -2250,17 +2449,29 @@ def phase_long_reads(dev, report):
         win = nbw * B
         z = torch.zeros((W, L), dtype=torch.int32, device=dev)
         kw = dict(avail0i=z, auto_target=True, max_coverage=m)
-        got = blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L, **kw)
+        # the wide path's twin: the whole pass, or past L = 4,096 a cut
+        cut = L > blocked._WIDE_MASK_SPAN
+        k = min(WIDE_CUT_BLOCKS, nbw) if cut else nbw
+        cp, cc = (p32[:k, :1].contiguous(), cnt[:k, :1].contiguous()) if cut else (p32, cnt)
+        cw = 1 if cut else W
+        cz = z[:cw]
+        ckw = dict(avail0i=cz, auto_target=True, max_coverage=m)
+        got = blocked.blocked_sweep_wide(cp, cc, None, cz, cz, cw, B, L, **ckw)
         torch.cuda.synchronize()
         ref, plain_ms = best_ms(lambda: blocked.blocked_sweep_pass_plain(
-            p32, cnt, None, z, z, W, B, L, **kw), dev, 1, warm=False)
+            cp, cc, None, cz, cz, cw, B, L, **ckw), dev, 1, warm=False)
         err = max_abs_err(got, ref)
+        if not (ref[0].any() or ref[2].any()):
+            raise AssertionError(f"{label}: the wide path's twin selected nothing")
         del got, ref
         got = blocked.blocked_selection_pass(p32, cnt, sel, xwin, W, B, L)
         torch.cuda.synchronize()
         sel_ref, sel_plain_ms = best_ms(lambda: blocked.blocked_selection_pass_plain(
             p32, cnt, sel, xwin, W, B, L), dev, 1, warm=False)
         sel_err = max_abs_err([got], [sel_ref])
+        selected = int(sel_ref.sum(dtype=torch.int64))
+        if not selected:
+            raise AssertionError(f"{label}: kernel C's twin selected nothing")
         del got, sel_ref
         pass_ms = best_ms(lambda: blocked.blocked_sweep_wide(p32, cnt, None, z, z, W, B, L,
                                                              **kw), dev, 3)[1]
@@ -2268,6 +2479,16 @@ def phase_long_reads(dev, report):
                          dev)[1]
         codes = int(cnt.sum())
         b_ms, b_by, bytes_ms = wide_bound(codes, W, win, L, 4 * cnt.numel())
+        s_ms, s_by = select_bound(cnt, sel, xwin, p32)
+        tier, path = blocked.wide_tier(B, L, True)[0], blocked.select_path(B, L)
+        tiers = paths = None
+        if cut:
+            tiers = forced_turns(dev, tier_runs(blocked, (p32, cnt, None, z, z, W, B, L), kw,
+                                                tier), 3)
+            if path == "tile":
+                paths = forced_turns(dev, path_runs(blocked, (p32, cnt, sel, xwin, W, B, L)),
+                                     5)
+        twin_on = (f"the first window's first {k} blocks" if cut else "the whole pass")
         out[label] = {
             "reads": reads, "genome": genome, "M": m,
             "W": W, "B": B, "L": L, "positions_per_pass": win,
@@ -2277,15 +2498,22 @@ def phase_long_reads(dev, report):
             "pass_bound_ms": b_ms, "pass_bound_by": b_by, "pass_bytes_bound_ms": bytes_ms,
             "pass_slot_bound_ms": sweep_bound(codes, W, win, L, 4 * cnt.numel())[0],
             "pass_plain_ms": plain_ms, "max_abs_err": err, "select_ms": sel_ms,
+            "select_bound_ms": s_ms, "select_bound_by": s_by,
             "select_plain_ms": sel_plain_ms, "select_max_abs_err": sel_err,
+            "selected_slots": selected, "twins_on": twin_on, "wide_tier": tier,
+            "select_path": path, "tier_turns": tiers, "select_path_turns": paths,
         }
         log(f"  {label} (W={W}, B={B}, L={L}, {win} positions a window, {codes} codes): "
             f"{stats['rounds']} rounds; laps "
             + ", ".join(f"{k} {v:.4f}" for k, v in stats["phases_s"].items())
-            + f" s; one full pass of the wide path == plain, {pass_ms:.3f} ms "
-            f"({1e6 * pass_ms / win:.1f} ns/position; bound {b_ms:.4f} ms, {b_by}; plain "
-            f"twin {plain_ms:.1f} ms); kernel C == plain, {sel_ms:.4f} ms (plain twin "
-            f"{sel_plain_ms:.1f} ms)  [{report}]")
+            + f" s; one full pass of the wide path (tier {tier}) "
+            f"{pass_ms:.3f} ms ({1e6 * pass_ms / win:.1f} ns/position; bound {b_ms:.4f} "
+            f"ms, {b_by}), == plain on {twin_on} (plain twin {plain_ms:.1f} ms); kernel C "
+            f"({path}) {sel_ms:.4f} ms (bound {s_ms:.5f} ms, {s_by}), == plain on the "
+            f"whole pass, {selected} slots selected (plain twin {sel_plain_ms:.1f} ms)"
+            + (f"; in turns on the full pass, each bit-equal: {turns_text(tiers)} ms"
+               if tiers else "")
+            + (f"; kernel C {turns_text(paths)} ms" if paths else "") + f"  [{report}]")
     return out
 
 
@@ -2293,9 +2521,8 @@ def bounded_pairs(pairs, genome, max_insert, seed=SEED):
     """150 bp pairs whose mates start at most ``max_insert - READ_LEN``
     apart (uniform first mates, the layout of a real library): a sharded
     run's halo can hold every pair. ``rand_reads_uniform`` places mates
-    independently, farther apart than any halo, and the fast BAM writer
-    writes no mate position, so the region read could not even report
-    those drops."""
+    independently, farther apart than any halo: a sharded run over them
+    raises the halo-contract error, as it should."""
     import numpy as np
 
     from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
@@ -2311,26 +2538,6 @@ def bounded_pairs(pairs, genome, max_insert, seed=SEED):
         seq_length=np.full(2 * pairs, READ_LEN, np.int64),
         is_first=np.tile([True, False], pairs), ref_genome_length=genome,
     )
-
-
-def indexed_bam(path, batch):
-    """Write ``batch`` with the fast writer and index it (``write_bai``
-    over the records' voffsets, read back from the file)."""
-    import numpy as np
-
-    from genome_downsampler_tpu_torch.config import BamApiConfig
-    from genome_downsampler_tpu_torch.io.bai import write_bai
-    from genome_downsampler_tpu_torch.io.bam import read_bam_region
-    from genome_downsampler_tpu_torch.testing.bam_writer import write_test_bam_fast
-
-    write_test_bam_fast(path, batch)
-    region = read_bam_region(path, BamApiConfig(min_mapq=0, min_seq_length=0), 0,
-                             batch.ref_genome_length)
-    got = region.batch
-    if got.n_reads != batch.n_reads:
-        raise AssertionError(f"{path.name}: read back {got.n_reads} of {batch.n_reads}")
-    order = np.argsort(got.bam_id)
-    write_bai(str(path) + ".bai", got.start[order], got.end[order], got.bam_id[order])
 
 
 def cli_ranks(args, n_procs, timeout=900):
@@ -2416,6 +2623,7 @@ def phase_sharded(dev, report):
         reconstruct_selection,
     )
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
+    from genome_downsampler_tpu_torch.testing.bam_writer import write_indexed_test_bam_fast
     from genome_downsampler_tpu_torch.testing.mesh_worker import spawn_ranks
 
     out, kernel_launches = {"card": report}, {"blocked_sweep": 0, "dense_sweep": 0}
@@ -2548,7 +2756,7 @@ def phase_sharded(dev, report):
     with tempfile.TemporaryDirectory() as d:
         src = Path(d) / "in.bam"
         t0 = time.perf_counter()
-        indexed_bam(src, bounded_pairs(pairs, n, MAX_INSERT))
+        write_indexed_test_bam_fast(src, bounded_pairs(pairs, n, MAX_INSERT))
         log(f"  (c) {2 * pairs} reads over {n} bases (pairs within {MAX_INSERT} bases), "
             f"BAM and BAI written in {time.perf_counter() - t0:.1f} s")
         flags = ["-l", "0", "-q", "0"]
@@ -2574,7 +2782,7 @@ def phase_sharded(dev, report):
 
         qp, qn, qm = SHARDED_QMCP
         src = Path(d) / "q.bam"
-        indexed_bam(src, bounded_pairs(qp, qn, MAX_INSERT))
+        write_indexed_test_bam_fast(src, bounded_pairs(qp, qn, MAX_INSERT))
         cli = {}
         for i, procs in enumerate((1, 2)):
             dst = Path(d) / f"q{i}.bam"
@@ -2655,11 +2863,19 @@ def main(argv=None) -> int:
     entries.append(phase_select(dev, c4, report))
     phase("[3b] kernel B's wide path and kernel C at long spans vs plain twins")
     wide, sel_err = phase_wide_sweep(dev, c4, report)
-    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], sel_err)
+    spans, span_err, span_sel_err = phase_wide_spans(dev, report)
+    wide["spans"] = {k: {f: v[f] for f in ("tier", "shared_bytes", "workspace_bytes", "ms",
+                                           "plain_ms", "bound_ms", "bound_by")}
+                     for k, v in spans.items()}
+    entries[1]["spans"] = {k: {f: v[f] for f in ("select_path", "select_ms",
+                                                 "select_plain_ms", "select_bound_ms",
+                                                 "select_bound_by")}
+                           for k, v in spans.items()}
+    wide["max_abs_err"] = max(wide["max_abs_err"], span_err)
+    entries[1]["max_abs_err"] = max(entries[1]["max_abs_err"], sel_err, span_sel_err)
     del c4
     torch.cuda.empty_cache()
-    phase("[3c] the wide path's main path: mcp-cuda-blocked on midnight-30kb, long-5mb "
-          "and artic-deep-30kb")
+    phase("[3c] the wide path's main path: mcp-cuda-blocked on " + ", ".join(WIDE_READ_SETS))
     wide["long_reads"] = long = phase_long_reads(dev, report)
     wide["launches"] = long["long-5mb"]["launches"]["blocked_sweep_wide"]
     wide["max_abs_err"] = max(wide["max_abs_err"], *(v["max_abs_err"] for v in long.values()))

@@ -37,22 +37,92 @@ from genome_downsampler_tpu_torch.ops import build
 # largest block the CUDA sweep kernel takes; the L values of its register
 # path (csrc/blocked_sweep.cu) and the most reads of one window that may
 # start at one position there (its arrival counts are uint16); every other
-# L, a multiple of 32 up to _CUDA_MAX_SPAN, and deeper stacks take the wide
-# path (csrc/blocked_sweep_wide.cu: per-end counts in shared memory and a
-# bitmask of the live ends). Kernel C takes the same L.
+# L, a multiple of 32, and deeper stacks take the wide path
+# (csrc/blocked_sweep_wide.cu: per-end counts and a set of the live ends,
+# in shared memory or, past it, a global workspace; see wide_tier). Kernels
+# B and C take any L with B * L below _CUDA_MAX_CODES: the codes start_rel *
+# L + span - 1 are int32.
 _CUDA_MAX_BLOCK = 256
 _CUDA_SPANS = (32, 64, 128, 256, 384, 512, 640, 768)
-_CUDA_MAX_SPAN = 4096
+_CUDA_MAX_CODES = 1 << 31
 _CUDA_MAX_STARTS = 65535
 
+# the wide path's tiers (csrc/blocked_sweep_wide.cu, whose layout
+# wide_layout mirrors): the most shared memory a CTA may have on sm_90, the
+# largest L of tier 0's flat mask, and the offsets, targets and outputs it
+# stages (ints); kernel C's warps (csrc/blocked_select.cu: its tile holds
+# (1 + warps) (B + L) ints in the same shared memory)
+_WIDE_MAX_SMEM = 232448
+_WIDE_MASK_SPAN = 4096
+_WIDE_STAGING = 6 * _CUDA_MAX_BLOCK + 2
+_SELECT_WARPS = 4
 
-def _check_cuda_span(what: str, L: int) -> None:
-    if L > _CUDA_MAX_SPAN or L < 32 or L % 32:
+
+def _check_cuda_span(what: str, B: int, L: int) -> None:
+    if L < 32 or L % 32 or B * L >= _CUDA_MAX_CODES:
         raise ValueError(
-            f"CUDA {what} kernel supports max_span up to {_CUDA_MAX_SPAN}, a "
-            f"multiple of 32; got max_span={L} (reads of up to "
-            f"{_CUDA_MAX_SPAN - 2} bases)"
+            f"CUDA {what} kernel supports max_span a multiple of 32 with "
+            f"block * max_span < 2^31 (the blocked engine's int32 codes); got "
+            f"max_span={L}, block={B}"
         )
+
+
+def tree_words(L: int) -> int:
+    """Words of the wide path's live-end tree at ``L``: the mask (L/32
+    words), then a level of one bit a word of the level below, up to a
+    level of one word."""
+    n = total = L // 32
+    while n > 1:
+        n = -(-n // 32)
+        total += n
+    return total
+
+
+def wide_layout(tier: int, B: int, L: int, auto_target: bool) -> tuple[int, int]:
+    """``(shared bytes, workspace int32 words a window)`` of the wide path's
+    tier ``tier`` at ``(B, L)``: 0 all in shared memory with a flat mask, 1
+    the same with the live-end tree, 2 the counts and the availi ring in
+    the workspace, 3 the tree there too."""
+    R = 0
+    if auto_target:
+        R = 1
+        while R < B + L + 1:
+            R <<= 1
+    T = tree_words(L)
+    return [(4 * (2 * L + L // 32 + _WIDE_STAGING + R), 0),
+            (4 * (2 * L + T + _WIDE_STAGING + R), 0),
+            (4 * (T + _WIDE_STAGING), 2 * L + R),
+            (4 * _WIDE_STAGING, 2 * L + R + T)][tier]
+
+
+def wide_tier(B: int, L: int, auto_target: bool, tier: int | None = None
+              ) -> tuple[int, int, int]:
+    """``(tier, shared bytes, workspace int32 words a window)`` the wide
+    path runs at ``(B, L)``: tier 0 up to L = 4,096, above it the least of
+    tiers 1-3 whose shared memory fits, or ``tier``, which may be any higher
+    one (to time one tier against another at one L)."""
+    least = 0 if L <= _WIDE_MASK_SPAN else next(
+        t for t in (1, 2, 3) if wide_layout(t, B, L, auto_target)[0] <= _WIDE_MAX_SMEM)
+    if tier is None:
+        tier = least
+    elif not least <= tier <= (3 if least else 0):
+        runs = f"tiers {least}-3" if least else "tier 0"
+        raise ValueError(f"the wide path runs {runs} at block={B}, max_span={L}; "
+                         f"got tier={tier}")
+    return (tier, *wide_layout(tier, B, L, auto_target))
+
+
+def select_path(B: int, L: int, path: str | None = None) -> str:
+    """Kernel C's path at ``(B, L)``: ``"tile"`` while its (1 + warps) (B +
+    L)-int tile fits shared memory, else ``"hash"``; or ``path``, where
+    ``"hash"`` runs at any L (to time the two at one L)."""
+    fits = 4 * (1 + _SELECT_WARPS) * (B + L) <= _WIDE_MAX_SMEM
+    if path is None:
+        return "tile" if fits else "hash"
+    if path != "hash" and not (path == "tile" and fits):
+        raise ValueError(f"kernel C runs {'tile or hash' if fits else 'hash'} at "
+                         f"block={B}, max_span={L}; got path={path!r}")
+    return path
 
 
 def expand_flat_codes(flat: torch.Tensor, counts: torch.Tensor, nbw: int,
@@ -181,10 +251,11 @@ def blocked_sweep_pass_plain(
 
 
 def _kernel_b(entry, packed, counts, target, avail0, selend0, avail0i, W, B, L,
-              grid_offset, auto_target, max_coverage):
-    """Launch kernel B's C entry ``entry`` on checked CUDA tensors; returns
-    the outputs of ``blocked_sweep_pass``."""
-    _check_cuda_span("sweep", L)
+              grid_offset, auto_target, max_coverage, extra_ptrs=(), extra_sizes=()):
+    """Launch kernel B's C entry ``entry`` on checked CUDA tensors, with
+    ``extra_ptrs`` after its pointers and ``extra_sizes`` after its sizes;
+    returns the outputs of ``blocked_sweep_pass``."""
+    _check_cuda_span("sweep", B, L)
     if B > _CUDA_MAX_BLOCK:
         raise ValueError(f"CUDA sweep kernel supports block <= {_CUDA_MAX_BLOCK}; "
                          f"got block={B}")
@@ -196,16 +267,17 @@ def _kernel_b(entry, packed, counts, target, avail0, selend0, avail0i, W, B, L,
     availf, selendf, availfi = (
         torch.empty((W, L), dtype=torch.int32, device=dev) for _ in range(3)
     )
-    lib = build.load_kernels()
-    with torch.cuda.device(dev):
-        rc = getattr(lib, entry)(
-            args[0].data_ptr(), args[1].data_ptr(),
+    ptrs = [args[0].data_ptr(), args[1].data_ptr(),
             tgt.data_ptr() if tgt is not None else None,
             args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
-            out.data_ptr(), availf.data_ptr(), selendf.data_ptr(),
-            availfi.data_ptr(), nbw, W, cap, B, L, grid_offset,
-            int(auto_target), int(max_coverage),
-            torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), availf.data_ptr(), selendf.data_ptr(), availfi.data_ptr(),
+            *extra_ptrs]
+    sizes = [nbw, W, cap, B, L, grid_offset, int(auto_target), int(max_coverage),
+             *extra_sizes]
+    lib = build.load_kernels()
+    with torch.cuda.device(dev):
+        rc = getattr(lib, entry)(*ptrs, *sizes,
+                                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(entry, rc)
     return out, availf, selendf, availfi
 
@@ -262,18 +334,22 @@ blocked_sweep_pass.launches = 0
 
 def blocked_sweep_wide(
     packed, counts, target, avail0, selend0, n_windows, block, max_span, *,
-    grid_offset=0, avail0i=None, auto_target=False, max_coverage=0,
+    grid_offset=0, avail0i=None, auto_target=False, max_coverage=0, tier=None,
 ):
     """``blocked_sweep_pass`` through kernel B's wide path
-    (``csrc/blocked_sweep_wide.cu``) whatever L (a multiple of 32 up to
-    ``_CUDA_MAX_SPAN``) and however many reads start at one position.
-    ``blocked_sweep_pass`` sends it the inputs its register path does not
-    take; a direct call times the wide path where both run. CPU tensors run
-    the plain twin. ``launches`` counts its launches.
+    (``csrc/blocked_sweep_wide.cu``) whatever L (a multiple of 32 with
+    ``B * L < 2^31``; its tier ``wide_tier(B, L, auto_target, tier)``, the
+    least that fits unless ``tier`` forces a higher one) and however many
+    reads start at one position. ``blocked_sweep_pass`` sends it the inputs
+    its register path does not take; a direct call times the wide path
+    where both run. CPU tensors run the plain twin. ``launches`` counts its
+    launches.
 
     Precondition of the CUDA kernel (not of the plain twin): each group's
     codes are sorted by start (``code // L``), as the packers emit them; the
     kernel reads each position's arrivals as one run of its group."""
+    W, B, L = n_windows, block, max_span
+    tier, _, words = wide_tier(B, L, auto_target, tier)
     if packed.device.type == "cpu":
         return blocked_sweep_pass_plain(
             packed, counts, target, avail0, selend0, n_windows, block,
@@ -282,12 +358,13 @@ def blocked_sweep_wide(
         )
     if packed.device.type != "cuda":
         raise ValueError(f"no blocked sweep for device {packed.device}")
-    W, B, L = n_windows, block, max_span
     avail0i = _sweep_args(packed, counts, target, avail0, selend0, avail0i,
                           W, B, L, grid_offset, auto_target)
+    ws = torch.empty(W * words, dtype=torch.int32, device=packed.device) if words else None
     res = _kernel_b("gd_blocked_sweep_wide", packed, counts, target, avail0,
                     selend0, avail0i, W, B, L, grid_offset, auto_target,
-                    max_coverage)
+                    max_coverage, (ws.data_ptr() if words else None,),
+                    (4 * W * words, tier))
     blocked_sweep_wide.launches += 1
     return res
 
@@ -404,26 +481,29 @@ def blocked_selection_pass_plain(packed, counts, sel, xwin, n_windows, block,
 
 
 def blocked_selection_pass(packed, counts, sel, xwin, n_windows, block,
-                           max_span):
+                           max_span, *, path=None):
     """Selection byte per packed slot (kernel C): 1 iff the slot's read
     ranks, in its end bucket ordered by (start, read index), below
     ``sel[end]``. ``sel`` int32 ``[W * nbw * B]`` is the sweep output;
     ``xwin`` int32 ``(W, B + L)`` counts reads of earlier windows ending at
-    each window-relative position. Returns int8 ``(nbw, W, cap)``.
+    each window-relative position. Returns int8 ``(nbw, W, cap)``. On CUDA
+    tensors the kernel runs ``select_path(B, L, path)``: its tile while it
+    fits, else (or with ``path="hash"``) its hash path.
 
     Precondition of the CUDA kernel (not of the plain twin): each group's
     codes are sorted ascending, equal codes in read-index order, as the
     packers emit them. The kernel then ranks a read by the earlier slots of
     its group with the same end."""
+    W, B, L = n_windows, block, max_span
+    path = select_path(B, L, path)
     if packed.device.type == "cpu":
         return blocked_selection_pass_plain(
             packed, counts, sel, xwin, n_windows, block, max_span
         )
     if packed.device.type != "cuda":
         raise ValueError(f"no selection pass for device {packed.device}")
-    W, B, L = n_windows, block, max_span
     _selection_args(packed, counts, sel, xwin, W, B, L)
-    _check_cuda_span("selection", L)
+    _check_cuda_span("selection", B, L)
     nbw, _, cap = packed.shape
     dev = packed.device
     p, c, s, x = (t.contiguous() for t in (packed, counts, sel, xwin))
@@ -432,7 +512,7 @@ def blocked_selection_pass(packed, counts, sel, xwin, n_windows, block,
     with torch.cuda.device(dev):
         rc = lib.gd_blocked_select(
             p.data_ptr(), c.data_ptr(), s.data_ptr(), x.data_ptr(),
-            out.data_ptr(), nbw, W, cap, B, L,
+            out.data_ptr(), nbw, W, cap, B, L, int(path == "hash"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check("gd_blocked_select", rc)

@@ -37,10 +37,11 @@ _SIGNATURES = {
     #  out, availf, selendf, availfi,
     #  nbw, W, cap, B, L, grid_offset, auto_target, max_coverage, stream)
     "gd_blocked_sweep": [_P] * 10 + [_I] * 8 + [_P],
-    # gd_blocked_sweep's arguments
-    "gd_blocked_sweep_wide": [_P] * 10 + [_I] * 8 + [_P],
-    # (packed, counts, sel, xwin, out, nbw, W, cap, B, L, stream)
-    "gd_blocked_select": [_P] * 5 + [_I] * 5 + [_P],
+    # gd_blocked_sweep's arguments, with the workspace after availfi and
+    # its bytes and the tier after max_coverage
+    "gd_blocked_sweep_wide": [_P] * 11 + [_I] * 10 + [_P],
+    # (packed, counts, sel, xwin, out, nbw, W, cap, B, L, hash, stream)
+    "gd_blocked_select": [_P] * 5 + [_I] * 6 + [_P],
     # (rows, target, avail0, selend0, out, takes, availf, selendf,
     #  S, n, L, takes_mode, stream)
     "gd_dense_sweep": [_P] * 8 + [_I] * 4 + [_P],

@@ -11,8 +11,9 @@ deterministic push-relabel flow engine, one push-relabel kernel launch a
 solve). ``mcp-cuda`` and
 ``quasi-mcp-cuda`` run the dense engine up to 262,144 bases and the blocked
 engine above, and refuse reads longer than 256 bases; ``mcp-cuda-blocked``
-always runs the blocked engine, which grows its span bound for longer
-reads. Constructing any of them without a card raises. Factories are lazy,
+always runs the blocked engine, which grows its span bound L with the
+longest read and takes any read its int32 codes carry (block * L < 2^31).
+Constructing any of them without a card raises. Factories are lazy,
 so importing the registry loads no solver module.
 """
 

@@ -85,7 +85,10 @@ def write_test_bam_fast(
     (``p%09d``), coordinate-sorted, single ``<span>M`` cigar — but the
     record stream is assembled with numpy byte surgery instead of a Python
     loop, so config-4-scale inputs (10M+ reads, ~GB BAMs) synthesize in
-    tens of seconds instead of many minutes.
+    tens of seconds instead of many minutes. Each read of a pair (two reads
+    of one ``bam_id // 2``) names its mate: ``next_refID`` 0 and
+    ``next_pos`` the mate's start, which a region read needs to report a
+    mate outside its region; any other read gets -1 in both.
     """
     r = batch.n_reads
     if r == 0 or len(batch.contig_lengths) > 1:
@@ -97,7 +100,18 @@ def write_test_bam_fast(
     seq_len = batch.seq_length[order].astype(np.int64)
     is_first = batch.is_first[order]
     pair_idx = (batch.bam_id[order] // 2).astype(np.int64)
-    mate_start = np.zeros(r, np.int64)  # next_pos unused by the reader
+    # each read's mate: the other read of its pair id, if there is exactly one
+    by_pair = np.argsort(batch.bam_id // 2, kind="stable")
+    pid = (batch.bam_id // 2)[by_pair]
+    eq = pid[1:] == pid[:-1]
+    pairs = np.flatnonzero(eq & ~np.r_[False, eq[:-1]] & ~np.r_[eq[1:], False])
+    mate = np.full(r, -1, np.int64)
+    mate[by_pair[pairs]] = by_pair[pairs + 1]
+    mate[by_pair[pairs + 1]] = by_pair[pairs]
+    mate = mate[order]
+    has_mate = mate >= 0
+    mate_ref = np.where(has_mate, 0, -1)
+    mate_start = np.where(has_mate, batch.start[np.maximum(mate, 0)], -1).astype(np.int64)
 
     text = f"@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:{ref_name}\tLN:{batch.ref_genome_length}\n"
     hdr = b"BAM\x01"
@@ -135,8 +149,8 @@ def write_test_bam_fast(
     buf[:, 18] = flag & 0xFF
     buf[:, 19] = flag >> 8
     put_i32(20, seq_len)                           # l_seq
-    put_i32(24, np.full(r, -1, np.int64))          # next_refID
-    put_i32(28, mate_start - 1)                    # next_pos (-1: unused)
+    put_i32(24, mate_ref)                          # next_refID
+    put_i32(28, mate_start)                        # next_pos
     # tlen (4 bytes at 32? no: layout is 32 fixed) — fixed part is 36 incl
     # block_size: offsets above already account for the 4-byte prefix
     qs = 36
@@ -166,6 +180,24 @@ def write_test_bam_fast(
             # level 1: synthetic test data, write speed over ratio
             f.write(_bgzf_compress(raw[off : off + step], level=1))
         f.write(_BGZF_EOF)
+
+
+def write_indexed_test_bam_fast(path: Path | str, batch: ReadBatch) -> None:
+    """Write ``batch`` with :func:`write_test_bam_fast` and index it
+    (``write_bai`` over the records' voffsets, read back from the file),
+    for region reads and ``--sharded`` runs."""
+    from genome_downsampler_tpu_torch.config import BamApiConfig
+    from genome_downsampler_tpu_torch.io.bai import write_bai
+    from genome_downsampler_tpu_torch.io.bam import read_bam_region
+
+    write_test_bam_fast(path, batch)
+    region = read_bam_region(path, BamApiConfig(min_mapq=0, min_seq_length=0), 0,
+                             batch.ref_genome_length)
+    got = region.batch
+    if got.n_reads != batch.n_reads:
+        raise AssertionError(f"{Path(path).name}: read back {got.n_reads} of {batch.n_reads}")
+    order = np.argsort(got.bam_id)
+    write_bai(str(path) + ".bai", got.start[order], got.end[order], got.bam_id[order])
 
 
 def write_test_bam(

@@ -444,10 +444,10 @@ def test_blocked_solver_cuda_deep_amplicons_match_host_greedy(cuda):
     np.testing.assert_array_equal(sel, reg.get("mcp-cpu").solve(1000, batch))
 
 
-@pytest.mark.parametrize("span", [1000, 4094])
+@pytest.mark.parametrize("span", [1000, 4094, 16000])
 def test_blocked_solver_cuda_long_reads_match_host_greedy(cuda, span):
-    """mcp-cuda-blocked on reads of up to 1,000 (L = 1,024) and 4,094 bases
-    (L = 4,096): the read set of mcp-cpu."""
+    """mcp-cuda-blocked on reads of up to 1,000 (L = 1,024), 4,094 (L =
+    4,096) and 16,000 bases (L = 16,128): the read set of mcp-cpu."""
     from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
     from genome_downsampler_tpu_torch.solvers.registry import default_registry
 
@@ -648,20 +648,157 @@ def test_select_kernel_takes_groups_of_40000_and_70000_codes(cuda, hot, spread):
     assert torch.equal(pack_bits(got), bits) and int(got.sum()) == n_sel > 0
 
 
-@pytest.mark.parametrize("L", [48, 4128])
+@pytest.mark.parametrize("L", [48, 1 << 25])
 def test_select_kernel_rejects_unsupported_span(cuda, L):
-    """Not a multiple of 32, or above 4096: kernels B and C refuse, naming
-    the bound."""
+    """Not a multiple of 32, or block * L = 2^31 (past the int32 codes):
+    kernels B and C refuse, naming the bound."""
     p = torch.full((1, 1, 64), -1, dtype=torch.int32, device=cuda)
     c = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
     sel = torch.zeros(64, dtype=torch.int32, device=cuda)
     xwin = torch.zeros((1, 64 + L), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="max_span up to 4096"):
+    match = r"block \* max_span < 2\^31"
+    with pytest.raises(ValueError, match=match):
         blocked.blocked_selection_pass(p, c, sel, xwin, 1, 64, L)
     z = torch.zeros((1, L), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="max_span up to 4096"):
+    with pytest.raises(ValueError, match=match):
         blocked.blocked_sweep_pass(p, c, None, z, z, 1, 64, L, avail0i=z,
                                    auto_target=True, max_coverage=3)
+
+
+# every tier of the wide path (blocked.wide_tier) with and without auto
+# targets, kernel C's tile (L <= 11,488 at B = 128) and its hash path
+WIDE_SPANS = [4224, 8192, 16128, 16256, 65536, 1 << 21]
+
+
+@pytest.mark.parametrize("auto,grid_offset,seeded", [(True, 0, False), (False, 1, True),
+                                                     (True, 1, True)])
+@pytest.mark.parametrize("L", WIDE_SPANS)
+def test_sweep_kernel_b_wide_tiers_match_plain(cuda, L, auto, grid_offset, seeded):
+    """Past L = 4,096: the wide path's tree of live ends in shared memory,
+    the counts and ring in the workspace, the tree there too; short
+    windows of 4 blocks, spans up to L - 1, seeded carries live over the
+    whole ring."""
+    from genome_downsampler_tpu_torch.testing.long_reads import (
+        capped_coverage,
+        long_span_pass,
+    )
+
+    W, B, m = 2, 128, 9
+    start, end, packed, counts, win, _ = long_span_pass(np.random.default_rng(L), L, W, B)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    target = None if auto else torch.tensor(
+        capped_coverage(start, end, W * win, m).reshape(W, win), device=cuda)
+    g = np.random.default_rng(L + grid_offset)
+    carries = [torch.tensor(g.integers(0, 4, (W, L)).astype(np.int32) if seeded
+                            else np.zeros((W, L), np.int32), device=cuda)
+               for _ in range(3)]
+    kw = dict(grid_offset=grid_offset, avail0i=carries[2], auto_target=auto,
+              max_coverage=m if auto else 0)
+    n0 = blocked.blocked_sweep_wide.launches
+    got = blocked.blocked_sweep_pass(p, c, target, carries[0], carries[1], W, B, L, **kw)
+    torch.cuda.synchronize()
+    assert blocked.blocked_sweep_wide.launches == n0 + 1
+    ref = blocked.blocked_sweep_pass_plain(p, c, target, carries[0], carries[1], W, B, L,
+                                           **kw)
+    for g_, r in zip(got, ref):
+        assert torch.equal(g_, r)
+    assert ref[0].any()
+
+
+@pytest.mark.parametrize("L,hot", [(L, 0) for L in WIDE_SPANS] + [(16256, 5000)])
+def test_select_kernel_wide_spans_match_plain(cuda, L, hot):
+    """Kernel C past L = 4,096: its tile up to 11,488, the hash path above,
+    also where one group's 5,000 reads take two rounds of its table."""
+    from genome_downsampler_tpu_torch.testing.long_reads import long_span_pass
+
+    W, B = 2, 128
+    start, end, packed, counts, win, xwin = long_span_pass(
+        np.random.default_rng(L + 1), L, W, B, hot=hot)
+    assert counts.max() >= hot
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                            max_coverage=9)
+    x = torch.tensor(xwin, device=cuda)
+    n0 = blocked.blocked_selection_pass.launches
+    got = blocked.blocked_selection_pass(p, c, sel, x, W, B, L)
+    torch.cuda.synchronize()
+    assert blocked.blocked_selection_pass.launches == n0 + 1
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, x, W, B, L))
+    assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("L,tier", [(8192, 2), (8192, 3), (16128, 2), (16128, 3),
+                                    (65536, 3)])
+def test_sweep_kernel_b_forced_tiers_match_plain(cuda, L, tier):
+    """A tier above the one the wrapper picks (as phase 3b of chip_smoke.py
+    times them at one L) gives the twin's result, from zero carries with
+    auto targets and from seeded carries with given targets."""
+    from genome_downsampler_tpu_torch.testing.long_reads import (
+        capped_coverage,
+        long_span_pass,
+    )
+
+    W, B, m = 2, 128, 9
+    start, end, packed, counts, win, _ = long_span_pass(np.random.default_rng(L + tier), L,
+                                                         W, B)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    assert blocked.wide_tier(B, L, True)[0] < tier
+    g = np.random.default_rng(L)
+    z = torch.zeros((W, L), dtype=torch.int32, device=cuda)
+    seeded = [torch.tensor(g.integers(0, 4, (W, L)).astype(np.int32), device=cuda)
+              for _ in range(3)]
+    target = torch.tensor(capped_coverage(start, end, W * win, m).reshape(W, win),
+                          device=cuda)
+    for tgt, carries, kw in ((None, [z, z, z], dict(auto_target=True, max_coverage=m)),
+                             (target, seeded, dict(grid_offset=1))):
+        got = blocked.blocked_sweep_wide(p, c, tgt, carries[0], carries[1], W, B, L,
+                                         avail0i=carries[2], tier=tier, **kw)
+        torch.cuda.synchronize()
+        ref = blocked.blocked_sweep_pass_plain(p, c, tgt, carries[0], carries[1], W, B, L,
+                                               avail0i=carries[2], **kw)
+        for g_, r in zip(got, ref):
+            assert torch.equal(g_, r)
+        assert ref[0].any()
+
+
+@pytest.mark.parametrize("L", [256, 4224, 8192])
+def test_select_kernel_hash_path_where_the_tile_fits_matches_plain(cuda, L):
+    """Kernel C's hash path forced where its tile fits (as chip_smoke.py
+    times the two at one L)."""
+    from genome_downsampler_tpu_torch.testing.long_reads import long_span_pass
+
+    W, B = 2, 128
+    _, _, packed, counts, _, xwin = long_span_pass(np.random.default_rng(L + 2), L, W, B)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                            max_coverage=9)
+    x = torch.tensor(xwin, device=cuda)
+    assert blocked.select_path(B, L) == "tile"
+    got = blocked.blocked_selection_pass(p, c, sel, x, W, B, L, path="hash")
+    torch.cuda.synchronize()
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, x, W, B, L))
+    assert int(got.sum()) > 0
+
+
+@pytest.mark.parametrize("L,blocks", [(16256, 144), (65536, 516)])
+def test_select_kernel_streams_every_lookback_group(cuda, L, blocks):
+    """Windows longer than kernel C's lookback (1 + (L - 2) / B groups: 127
+    at L = 16,256, 512 at 65,536), so the hash path streams all of them,
+    with 3,000 reads a window, half ending within it."""
+    from genome_downsampler_tpu_torch.testing.long_reads import long_span_pass
+
+    W, B = 2, 128
+    assert blocks > 1 + (L - 2) // B
+    _, _, packed, counts, _, xwin = long_span_pass(np.random.default_rng(L + 3), L, W, B,
+                                                   blocks=blocks, reads=6000)
+    p, c = torch.tensor(packed, device=cuda), torch.tensor(counts, device=cuda)
+    sel, _ = blocked.blocked_windowed_sweep(p, c, None, W, B, L, auto_target=True,
+                                            max_coverage=9)
+    x = torch.tensor(xwin, device=cuda)
+    got = blocked.blocked_selection_pass(p, c, sel, x, W, B, L)
+    torch.cuda.synchronize()
+    assert torch.equal(got, blocked.blocked_selection_pass_plain(p, c, sel, x, W, B, L))
+    assert int(got.sum()) > 0
 
 
 def test_solver_cuda_matches_cpu_and_host_greedy(cuda):

@@ -124,6 +124,29 @@ def test_bam_written_by_the_port_reads_back_equal_through_both_readers(tmp_path)
     np.testing.assert_array_equal(np.sort(ours.start), np.sort(b.start))
 
 
+def test_fast_writer_names_each_mate(tmp_path):
+    """Each read of a pair carries its mate's contig (0) and start: a
+    region read that holds one mate of a pair (its start in the region)
+    reports the other's start (a pair of one read, the odd read out, names
+    none)."""
+    from genome_downsampler_tpu_torch.io.bam import read_bam_region
+
+    b = _batch(33, pairs=1500, n=20_000, read_len=100).select(np.arange(2999))
+    path = tmp_path / "in.bam"
+    write_test_bam_fast(path, b)
+    lo, hi = 5_000, 9_000
+    region = read_bam_region(path, BamApiConfig(min_seq_length=0, min_mapq=0), lo, hi)
+    us, ue, ump = region.unmatched.T
+    mate = np.arange(b.n_reads) ^ 1
+    inside = (b.start >= lo) & (b.start <= hi)
+    want = np.flatnonzero(inside & (mate < b.n_reads))
+    want = want[~inside[mate[want]]]
+    assert len(want) > 100
+    got = sorted(zip(us.tolist(), ue.tolist(), ump.tolist()))
+    assert got == sorted(zip(b.start[want].tolist(), b.end[want].tolist(),
+                             b.start[mate[want]].tolist()))
+
+
 def _read_names(path):
     """The read names of a BAM file's records, in file order."""
     data = gzip.decompress(path.read_bytes())

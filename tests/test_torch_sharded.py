@@ -167,6 +167,46 @@ def test_allow_boundary_drops_warns_and_continues(tmp_path):
     assert "allow_boundary_drops=True: continuing" in "\n".join(outs)
 
 
+@pytest.mark.parametrize("halo", [256, 3_200])
+def test_two_ranks_over_the_ports_bam_raise_or_keep_far_pairs(tmp_path, halo):
+    """A BAM from the port's own fast writer, whose mates start 1,000-3,000
+    bases apart: two ranks over gloo raise the halo-contract error where
+    the halo (256) cannot hold the pairs, and with a halo that can (3,200)
+    keep every pair: the one-rank run's voffsets and output bytes. No
+    boundary pair is dropped silently."""
+    from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
+    from genome_downsampler_tpu_torch.testing.bam_writer import write_indexed_test_bam_fast
+
+    rng = np.random.default_rng(17)
+    pairs, n, read_len = 1500, 16_384, 100
+    first = rng.integers(0, n - 3_000 - read_len, pairs)
+    start = np.empty(2 * pairs, np.int64)
+    start[0::2], start[1::2] = first, first + rng.integers(1_000, 3_001, pairs)
+    batch = ReadBatch(
+        bam_id=np.arange(2 * pairs, dtype=np.int64), start=start, end=start + read_len - 1,
+        quality=rng.integers(0, 61, 2 * pairs), seq_length=np.full(2 * pairs, read_len),
+        is_first=np.tile([True, False], pairs), ref_genome_length=n)
+    bam = tmp_path / "in.bam"
+    write_indexed_test_bam_fast(bam, batch)
+    kw = dict(halo=halo, max_span=128, algorithm="qmcp-cpu")
+    out = tmp_path / "out.bam"
+    rcs, outs, res = spawn_ranks("run_sharded", 2, tmp_path / "ranks", timeout=TIMEOUT,
+                                 params={"path": str(bam), "m": 4, "out_path": str(out),
+                                         **kw})
+    text = "\n".join(outs)
+    if halo == 256:
+        assert any(rcs), "far pairs over a small halo did not fail"
+        assert f"halo={halo} is too small — the widest offending pair needs >= " in text
+        assert not out.exists()
+        return
+    assert rcs == [0, 0], text[-3000:]
+    ref_out = tmp_path / "one.bam"
+    ref = sharded_io.run_sharded(bam, 4, CFG, ref_out, device="cpu", **kw)
+    for r in res:
+        np.testing.assert_array_equal(r["merged"], ref)
+    assert out.read_bytes() == ref_out.read_bytes() and len(ref) > 0
+
+
 @pytest.mark.parametrize("halo,max_span", [(100, 128), (255, 128), (511, 256)])
 def test_small_halo_value_error_matches_jax(sorted_indexed_bam, halo, max_span):
     with pytest.raises(ValueError) as ours:

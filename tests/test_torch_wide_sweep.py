@@ -13,8 +13,9 @@
   the offsets and the ring they stand for;
 - the read sets of ``testing/long_reads.py`` at a tiny size through the
   blocked solver's CPU twins, against ``mcp-cpu``;
-- ``chip_smoke.py --against``'s binding of the wide path's C entry, with
-  and without the ``wide_tile`` argument of its earlier sources.
+- ``chip_smoke.py --against``'s binding of the wide path's C entry: the
+  port's, with its workspace, and its earlier sources', with the
+  ``wide_tile`` argument or without the workspace.
 
 Every comparison is integer bit-equality; inputs come from numpy seeds.
 """
@@ -397,7 +398,36 @@ extern "C" int gd_blocked_sweep_wide(
 """
 
 
-@pytest.mark.parametrize("source", ["port", "with wide_tile"])
+# and as the sources up to L = 4,096 declared it: gd_blocked_sweep's arguments
+NO_WORKSPACE_ENTRY = WIDE_TILE_ENTRY.replace("void* availfi, ", "void* availfi,").replace(
+    "int64_t max_coverage, int64_t wide_tile,", "int64_t max_coverage,")
+
+
+@pytest.mark.parametrize("source", ["port", "without the path"])
+def test_against_binds_kernel_c_with_and_without_the_path(tmp_path, source):
+    """Kernel C's entry takes its path (tile or hash) from the caller; the
+    sources up to L = 4,096 chose it themselves."""
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("_chip_smoke", root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from genome_downsampler_tpu_torch.ops import build
+
+    text = (root / "genome_downsampler_tpu_torch" / "ops" / "csrc" / "blocked_select.cu"
+            ).read_text()
+    if source != "port":
+        text = text.replace("int64_t L, int64_t hash,", "int64_t L,")
+    path = tmp_path / "other.cu"
+    path.write_text(text)
+    assert cs.against_entry(path) == "gd_blocked_select"
+    sig = cs.against_signature(path, "gd_blocked_select")
+    if source == "port":
+        assert sig == build._SIGNATURES["gd_blocked_select"] and len(sig) == 12
+    else:
+        assert sig == cs.SELECT_NO_PATH_SIGNATURE and len(sig) == 11
+
+
+@pytest.mark.parametrize("source", ["port", "with wide_tile", "without a workspace"])
 def test_against_binds_the_wide_entry_with_and_without_wide_tile(tmp_path, source):
     root = Path(__file__).resolve().parents[1]
     spec = importlib.util.spec_from_file_location("_chip_smoke", root / "chip_smoke.py")
@@ -406,13 +436,17 @@ def test_against_binds_the_wide_entry_with_and_without_wide_tile(tmp_path, sourc
     from genome_downsampler_tpu_torch.ops import build
 
     path = tmp_path / "other.cu"
-    path.write_text(WIDE_TILE_ENTRY if source == "with wide_tile" else (
+    text = {"with wide_tile": WIDE_TILE_ENTRY, "without a workspace": NO_WORKSPACE_ENTRY}
+    path.write_text(text.get(source) or (
         root / "genome_downsampler_tpu_torch" / "ops" / "csrc" / "blocked_sweep_wide.cu"
     ).read_text())
     assert cs.against_entry(path) == "gd_blocked_sweep_wide"
     sig = cs.against_signature(path, "gd_blocked_sweep_wide")
     if source == "port":
-        assert sig == build._SIGNATURES["gd_blocked_sweep_wide"]
-        assert sig == build._SIGNATURES["gd_blocked_sweep"] and len(sig) == 19
-    else:
+        # gd_blocked_sweep's arguments with the workspace, its bytes and the tier
+        assert sig == build._SIGNATURES["gd_blocked_sweep_wide"] and len(sig) == 22
+        assert sig[:10] + sig[11:19] + sig[21:] == build._SIGNATURES["gd_blocked_sweep"]
+    elif source == "with wide_tile":
         assert sig == cs.WIDE_TILE_SIGNATURE and len(sig) == 20
+    else:
+        assert sig == cs.WIDE_NO_WS_SIGNATURE == build._SIGNATURES["gd_blocked_sweep"]
