@@ -111,7 +111,7 @@ package. Phases, each of which raises on failure:
     workers, ``testing.mesh_worker``): ``entry.dryrun_multichip`` at L=32
     and the config-4 blocked mesh as 2 x 16 windows, ``sel`` equal to (a);
     rounds, messages, bytes over the wire and across PCIe, host syncs; (c)
-    the CLI BAM -> BAM on 6M reads over 3 Mb (config-4's 300x depth, M=50)
+    the CLI BAM -> BAM on 3M reads over 1.5 Mb (config-4's 300x depth, M=50)
     laid out as pairs at most 600 bases apart (indexed with
     ``write_bai``): ``-a mcp-cuda --sharded`` at
     1 and 2 processes byte-equal to ``-a mcp-cuda`` and ``-a mcp-cpu``, and
@@ -120,6 +120,22 @@ package. Phases, each of which raises on failure:
     logs (read, pack, solve, reconstruct, gather, write); all also as one
     ``{"sharded": ...}`` JSON line. Kernels A's and B's entries carry the
     launches of (a) as ``sharded_launches``.
+18. config-5 (BASELINE config 5, human chr1's shape: 100M Weyl reads of
+    150 bp over 250 Mb, M=30; W=64, B=128, L=256, cap=128) at full size:
+    the pack kernel (``ops/csrc/device_pack.cu``: the reads generated and
+    bucketed on the card) bit-equal to its twin on the card (packed,
+    counts, coverage difference, target, largest group), both timed, one
+    kernel B pass over its codes timed (ns per position at W=64) and the
+    script's coverage check timed on that pass's output; then
+    the main path, ``python -m genome_downsampler_tpu_torch.scripts.
+    bench_chr1``'s ``run`` on the card: selected count equal to the host
+    greedy's on the same reads and to the JAX script's 50,240,206,
+    coverage valid at every base and the per-end counts equal to the
+    oracle's, checked on the card; the pack kernel launched once and
+    kernel B once a pass (a seed pass and one a round); rounds, laps
+    (gen+pack, target, solve, check, host gen, host greedy) and the card's
+    memory peak; all also as one ``{"config5": ...}`` JSON line. Kernel B's
+    entry carries ``config5_launches`` and the pass's time.
 
 Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
 reads at L=1,024 and 4,096, from zero and seeded carries, timed; 70,000
@@ -323,12 +339,23 @@ FLOW_TABLE_BYTES_PER_READ, FLOW_TABLE_BYTES_PER_ARC = 8, 20
 # phase 17: the blocked mesh's windows a rank and block at config-4 (one
 # rank: kernel B's config-4 geometry), the CLI cells (pairs of 150 bp reads,
 # genome, M; mates at most MAX_INSERT bases apart): config-4's depth (300x)
-# cut to 6M reads over 3 Mb, which keeps phase 17 near 150 s (at 10M reads
-# over 5 Mb it took 163.5 s), and phase 5's size for qmcp-cuda
+# cut to 3M reads over 1.5 Mb, which keeps the whole run near half its
+# time limit once phase 18 runs (on an H100 at 6M reads over 3 Mb phase
+# 17 took 170.5 s and the run 652.0 s), and phase 5's size for qmcp-cuda
 SHARDED_W_LOCAL, SHARDED_BLOCK = 32, 128
-SHARDED_CLI = (3_000_000, 3_000_000, C4_M)
+SHARDED_CLI = (1_500_000, 1_500_000, C4_M)
 SHARDED_QMCP = (100_000, 30_000, 100)
 MAX_INSERT = 600
+# phase 18, config-5 (BASELINE config 5: human chr1's shape, 100M Weyl reads
+# of 150 bp over 250 Mb, M=30; scripts.bench_chr1's constants): the JAX
+# script's selected count on the same reads (BASELINE.md:74), which the
+# port's solve and its host oracle must both give
+C5_SELECTED = 50_240_206
+# int32 ops a read of the pack kernel's first pass: the Weyl product and
+# its mod, the window's division and remainder, the block's division and
+# remainder, the group's and the code's multiply-adds, the slot's compare
+# (its three atomics and its code are bytes)
+PACK_OPS = 9
 # gd_blocked_sweep_wide as its earlier sources declared it: gd_blocked_sweep's
 # arguments, then wide_tile (the first); gd_blocked_sweep's arguments (up
 # to L = 4,096, without the workspace and the tier); gd_blocked_select
@@ -358,7 +385,9 @@ def sweep_bound(codes, W, positions, L, extra_bytes):
 
 def launch_counts():
     """Each kernel's wrapper, which carries its launch count."""
-    from genome_downsampler_tpu_torch.ops import ablate, blocked, push_relabel, ssp, sweep, variants
+    from genome_downsampler_tpu_torch.ops import (
+        ablate, blocked, device_pack, push_relabel, ssp, sweep, variants,
+    )
 
     return {
         "dense_sweep": sweep.dense_sweep_counts,
@@ -370,6 +399,7 @@ def launch_counts():
         "ablate": ablate.blocked_ablate,
         "ssp": ssp.ssp_solve,
         "push_relabel": push_relabel.flow_solve,
+        "device_pack": device_pack.pack_reads,
     }
 
 
@@ -2801,6 +2831,108 @@ def phase_sharded(dev, report):
     return out, kernel_launches
 
 
+def pack_bound(r, packed, counts, diff):
+    """The pack kernel's ``(bound_ms, bound_by)``: its outputs written once
+    (``packed``, ``counts``, ``diff``; nothing is read, the reads come from
+    their index) and PACK_OPS int32 operations a read; and the time of the
+    traffic its design moves (bytes): those outputs, a code stored and
+    three 4-byte atomics a read, and ``packed`` read and written once more
+    by the sort."""
+    out = 4 * (packed.numel() + counts.numel() + diff.numel())
+    return bound(PACK_OPS * r, out), bound(0, out + 16 * r + 8 * packed.numel())[0]
+
+
+def phase_config5(dev, report):
+    """Config-5 at full size: the pack kernel against its twin on the card
+    (packed, counts, coverage difference, target, fill), both timed, one
+    kernel B pass over its codes and the coverage check on its output
+    timed; then the main path, the port's
+    ``scripts.bench_chr1.run`` on the card, its count equal to the host
+    oracle's and to C5_SELECTED, coverage valid, per-end counts equal, the
+    pack kernel launched once and kernel B once a pass. Returns the pack
+    kernel's JSON entry, kernel B's config-5 numbers and the run's."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import blocked, device_pack
+    from genome_downsampler_tpu_torch.scripts import bench_chr1 as c5
+    from genome_downsampler_tpu_torch.scripts import best_ms
+
+    r, n, W, B, L = c5.READS, c5.N, c5.W, c5.B, c5.L
+    geo = dict(block=B, span=L, cap=c5.CAP, read_len=c5.READ_LEN)
+    got, ms = best_ms(lambda: device_pack.pack_reads(r, n, W, dev, **geo), dev)
+    ref, plain_ms = best_ms(lambda: device_pack.pack_reads_plain(r, n, W, dev, **geo),
+                            dev, 1)
+    target = device_pack.capped_target(got[2], c5.M, W)
+    err = max_abs_err([*got[:3], target],
+                      [*ref[:3], device_pack.capped_target(ref[2], c5.M, W)])
+    if got[3] != ref[3]:
+        raise AssertionError(f"pack kernel fill {got[3]}, twin {ref[3]}")
+    del ref
+    packed, counts, diff, fill = got
+    (bound_ms, bound_by), design_ms = pack_bound(r, packed, counts, diff)
+    # the wrapper's fills of its outputs, which ms includes
+    fills_ms = best_ms(lambda: (torch.full_like(packed, -1), torch.zeros_like(counts),
+                                torch.zeros_like(diff)), dev)[1]
+    del got, diff
+    log(f"  pack kernel == plain twin at config-5 ({r} reads, n={n}, W={W}: packed "
+        f"{tuple(packed.shape)}, counts, coverage difference, target, fill {fill}): "
+        f"kernel {ms:.3f} ms (the outputs' fills alone {fills_ms:.3f} ms), twin "
+        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), the design's "
+        f"traffic {design_ms:.4f} ms  [{report}]")
+    z = torch.zeros((W, L), dtype=torch.int32, device=dev)
+    out, pass_ms = best_ms(lambda: blocked.blocked_sweep_pass(packed, counts, target, z, z,
+                                                              W, B, L), dev, 2)
+    positions = packed.shape[0] * B
+    pass_bound, _ = sweep_bound(r, W, positions, L, 4 * (counts.numel() + target.numel()))
+    log(f"  kernel B one config-5 pass (W={W}, {positions} positions a window, zero "
+        f"carries, targets given): {pass_ms:.3f} ms ({1e6 * pass_ms / positions:.1f} "
+        f"ns/position); bound {pass_bound:.4f} ms  [{report}]")
+    # the script's coverage check (the JAX script's valid), timed on that
+    # pass's per-end counts: sel and target read once
+    sel = out[0].reshape(-1)
+    valid_ms = best_ms(lambda: c5.covers_target(sel, target), dev)[1]
+    valid_bound, _ = bound(0, 4 * (sel.numel() + target.numel()))
+    log(f"  coverage check (torch ops) over {sel.numel()} positions: {valid_ms:.3f} ms; "
+        f"bound {valid_bound:.4f} ms (bytes)  [{report}]")
+    del packed, counts, target, z, out, sel
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    res = c5.run(dev, r, c5.M, n=n, windows=W,
+                 log=lambda *a: log("  " + " ".join(map(str, a))))
+    launches = read_launches()
+    expect_launches(launches, "device_pack", "blocked_sweep")
+    if not (res["ok"] and res["selected"] == C5_SELECTED):
+        raise AssertionError(f"config-5: selected {res['selected']}, host oracle "
+                             f"{res['oracle']}, expected {C5_SELECTED}; valid "
+                             f"{res['valid']}, first per-end difference "
+                             f"{res['first_difference']}")
+    if launches["blocked_sweep"] != res["passes"] or launches["device_pack"] != 1:
+        raise AssertionError(f"config-5 launches {launches}, {res['passes']} passes")
+    lp = res["laps"]
+    log(f"  config-5: selected {res['selected']} == host oracle {res['oracle']} == "
+        f"{C5_SELECTED}; coverage valid, per-end counts equal; {res['rounds']} rounds, "
+        f"{res['passes']} kernel B passes; laps: gen+pack {lp['gen_pack']:.4f} s, target "
+        f"{lp['target']:.4f} s, solve {lp['solve']:.4f} s, check {lp['check']:.4f} s, "
+        f"host gen {lp['host_gen']:.4f} s, host greedy {lp['host_greedy']:.4f} s; card "
+        f"memory peak {res['memory_peak_bytes'] / 2**30:.2f} GiB  [{report}]")
+    entry = {
+        "name": "device_pack", "route": "cuda",
+        "source": "genome_downsampler_tpu_torch/ops/csrc/device_pack.cu",
+        "replaces": "scripts/bench_chr1.py:147",
+        "launches": launches["device_pack"], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "design_traffic_ms": design_ms, "fills_ms": fills_ms,
+        "timed_on": f"config-5: {r} reads over {n} bases, W={W}, B={B}, L={L}, "
+                    f"cap={c5.CAP} (allocation, fills and the fill's read back included)",
+    }
+    b_extra = {"config5_launches": launches["blocked_sweep"], "config5_pass_ms": pass_ms,
+               "config5_ns_per_position": 1e6 * pass_ms / positions,
+               "config5_pass_bound_ms": pass_bound}
+    res["valid_ms"], res["valid_bound_ms"] = valid_ms, valid_bound
+    return entry, b_extra, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
@@ -2938,6 +3070,13 @@ def main(argv=None) -> int:
     next(e for e in entries if e["name"] == "blocked_sweep")["sharded_launches"] = (
         mesh_launches["blocked_sweep"])
     print(json.dumps({"sharded": sharded}))
+    torch.cuda.empty_cache()
+    phase("[18] config-5 (100M reads over 250 Mb, M=30) through scripts.bench_chr1 "
+          "on the card")
+    pack_entry, b_extra, c5 = phase_config5(dev, report)
+    entries.append(pack_entry)
+    next(e for e in entries if e["name"] == "blocked_sweep").update(b_extra)
+    print(json.dumps({"config5": c5}))
     phase(None)
     log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 

@@ -63,6 +63,8 @@ _SIGNATURES = {
     #  excess, label, scalars, ws, n, R, G, max_supersteps, relabel_every,
     #  nodes_in_ws, stream)
     "gd_push_relabel_solve": [_P] * 22 + [_I] * 6 + [_P],
+    # (packed, counts, diff, fill, r, n, read_len, W, win, B, L, cap, stream)
+    "gd_device_pack": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 

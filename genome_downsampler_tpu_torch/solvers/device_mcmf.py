@@ -142,14 +142,15 @@ def ssp_device_flows(
     first: np.ndarray,
     n: int,
     max_coverage: int,
-    device: str | torch.device = "cpu",
+    device: str | torch.device,
     stats: dict | None = None,
 ) -> np.ndarray:
     """Per-bucket take counts of the exact optimum, by the SSP on
-    ``device`` (the kernel on a card, its twin on the CPU). ``stats``, if
-    given, receives ``phases`` and ``rounds``. Raises ``SspStatusError``
-    when the run ends in a status other than ``OK``."""
-    dev = torch.device(device)
+    ``device``, which the caller names (``"cuda"``: the kernel, raising
+    without a card; ``"cpu"``: its twin). ``stats``, if given, receives
+    ``phases`` and ``rounds``. Raises ``SspStatusError`` when the run ends
+    in a status other than ``OK``."""
+    dev = resolve_device(device)
     B = bstart.shape[0]
     caps = np.diff(off)
     excess0 = _node_excess(bstart, bend, caps, n, max_coverage)
@@ -188,12 +189,13 @@ def ssp_device_select(
     cost: np.ndarray,
     n: int,
     max_coverage: int,
-    device: str | torch.device = "cpu",
+    device: str | torch.device,
     stats: dict | None = None,
 ) -> np.ndarray:
     """Exact min-cost selection meeting the capped target, by the SSP on
-    ``device``; ``stats`` as for ``ssp_device_flows``, plus ``buckets`` and
-    the laps ``phases_s`` (``buckets``, ``ssp``, ``select``, seconds)."""
+    ``device``, named as for ``ssp_device_flows``; ``stats`` as there,
+    plus ``buckets`` and the laps ``phases_s`` (``buckets``, ``ssp``,
+    ``select``, seconds)."""
     r = len(start)
     if r == 0:
         return np.zeros(0, np.int64)

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from genome_downsampler_tpu_torch import _native
-from genome_downsampler_tpu_torch.ops import ablate, blocked, sweep, variants
+from genome_downsampler_tpu_torch.ops import ablate, blocked, device_pack, sweep, variants
 from genome_downsampler_tpu_torch.solvers.blocked_sweep import (
     BlockedWindowedMcpSolver,
     _cross_window_offsets,
@@ -1230,3 +1230,31 @@ def test_mesh_engines_over_nccl_at_world_size_one(cuda):
         assert dryrun_multichip(cuda)["max_span"] == 32
     finally:
         dist.destroy_process_group()
+
+
+# (reads, genome, W, block, max_span, cap): config-5's geometry at 60x and
+# at 225x with a deeper cap, and a small odd one
+PACK_CASES = [(2_000_000, 5_000_000, 8, 128, 256, 128),
+              (3_000_000, 2_000_000, 64, 128, 256, 512),
+              (1_000, 10_000, 3, 64, 192, 32)]
+
+
+@pytest.mark.parametrize("r,n,W,B,L,cap", PACK_CASES)
+def test_device_pack_kernel_matches_plain(cuda, r, n, W, B, L, cap):
+    geo = dict(block=B, span=L, cap=cap, read_len=150)
+    before = device_pack.pack_reads.launches
+    got = device_pack.pack_reads(r, n, W, cuda, **geo)
+    torch.cuda.synchronize()
+    assert device_pack.pack_reads.launches == before + 1
+    ref = device_pack.pack_reads_plain(r, n, W, cuda, **geo)
+    for g, w in zip(got[:3], ref[:3]):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert got[3] == ref[3] == int(ref[1].max())
+    assert torch.equal(device_pack.capped_target(got[2], 30, W),
+                       device_pack.capped_target(ref[2], 30, W))
+
+
+def test_device_pack_kernel_raises_past_cap(cuda):
+    with pytest.raises(ValueError, match="more than cap=128"):
+        device_pack.pack_reads(2_000_000, 200_000, 4, cuda, block=128, span=256, cap=128,
+                               read_len=150)

@@ -4,6 +4,8 @@ kernel's plain twin against the JAX ``solve_loop`` (bit for bit in flows,
 supply, status and phases), the solver against the LP oracle, its size
 dispatch, and the errors it raises. Tolerance 0 throughout."""
 
+import inspect
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -241,6 +243,29 @@ def test_ssp_wrapper_checks_its_arguments():
         ssp.ssp_solve(*t[:7], t[7].long(), supply0 + 16)
     with pytest.raises(ValueError, match="pool: expected int32"):
         ssp.ssp_solve(*t[:4], t[4].long(), *t[5:], supply0 + 16)
+
+
+@pytest.mark.parametrize("fn", ["ssp_device_flows", "ssp_device_select"])
+def test_ssp_entry_points_need_a_named_device(monkeypatch, fn):
+    """Neither entry point runs on the CPU unless asked: ``device`` has no
+    default, so a call without one raises before any solve, and ``"cuda"``
+    raises without a card."""
+    assert (inspect.signature(getattr(device_mcmf, fn)).parameters["device"].default
+            is inspect.Parameter.empty)
+    start, end, cost, n, m = _case("lp0")
+    solves = []
+    monkeypatch.setattr(device_mcmf, "ssp_solve", lambda *a: solves.append(a))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if fn == "ssp_device_flows":
+        bs, be, off, pool, _, first = device_mcmf.build_convex_buckets(start, end, cost)
+        args = (bs, be, off, pool, first, n, m)
+    else:
+        args = (start, end, cost, n, m)
+    with pytest.raises(TypeError, match="device"):
+        getattr(device_mcmf, fn)(*args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(device_mcmf, fn)(*args, "cuda")
+    assert not solves
 
 
 def test_empty_and_zero_supply_inputs_select_nothing():

@@ -39,6 +39,8 @@ required = {
     "genome_downsampler_tpu_torch.testing.mesh_worker",
     "genome_downsampler_tpu_torch.scripts.bench_kernel_ablate",
     "genome_downsampler_tpu_torch.scripts.kernel_variants",
+    "genome_downsampler_tpu_torch.scripts.bench_chr1",
+    "genome_downsampler_tpu_torch.ops.device_pack",
     "genome_downsampler_tpu_torch.solvers.batched",
     "genome_downsampler_tpu_torch.solvers.device_sweep",
     "genome_downsampler_tpu_torch.ops.ssp",
