@@ -136,6 +136,18 @@ package. Phases, each of which raises on failure:
     (gen+pack, target, solve, check, host gen, host greedy) and the card's
     memory peak; all also as one ``{"config5": ...}`` JSON line. Kernel B's
     entry carries ``config5_launches`` and the pass's time.
+19. the probes (``genome_downsampler_tpu_torch.scripts``, counterparts of
+    the JAX package's root scripts), each ``run`` on the card at a small
+    size (``PROBES``): ``bench_kernel`` (kernel A at 100,000 pairs over
+    30 kb), ``bench_io`` (the BAM engine at 100,000 pairs),
+    ``bench_blocked`` (``sars`` cut to 200,000 pairs), ``bench_config4_probe``
+    (1M reads over 0.5 Mb), ``bench_e2e_quick`` (0.6M reads) and
+    ``bench_w_scaling`` (2M reads, W = 8 and 16): each probe's checks hold
+    (read sets equal to the host greedy's, index for index; kernel A equal
+    to its scan; coverage valid; the BAM reads and bytes the same at every
+    thread count), each launches the kernels it should and no other; each
+    probe's JSON and launches on one ``{"probes": ...}`` JSON line. Kernel
+    A's, B's and C's entries carry the launches as ``probe_launches``.
 
 Phase 3b holds kernel B's wide path (``blocked_sweep_wide.cu``: long
 reads at L=1,024 and 4,096, from zero and seeded carries, timed; 70,000
@@ -363,6 +375,17 @@ PACK_OPS = 9
 WIDE_TILE_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 9 + [ctypes.c_void_p]
 WIDE_NO_WS_SIGNATURE = [ctypes.c_void_p] * 10 + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
 SELECT_NO_PATH_SIGNATURE = [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5 + [ctypes.c_void_p]
+# phase 19: each probe's module, the arguments of its run() and the
+# kernels it launches
+PROBES = {
+    "bench_kernel": ((100_000,), ("dense_sweep",)),
+    "bench_io": ((100_000,), ()),
+    "bench_blocked": (("sars",), ("blocked_sweep",)),
+    "bench_config4_probe": ((1_000_000, 500_000), ("blocked_sweep", "blocked_select")),
+    "bench_e2e_quick": ((600_000,), ("blocked_sweep", "blocked_select")),
+    "bench_w_scaling": ((2_000_000, ((8, None), (16, None))), ("blocked_sweep",)),
+}
+PROBE_KW = {"bench_blocked": {"pairs": 200_000}}
 
 
 def log(*a):
@@ -2933,6 +2956,30 @@ def phase_config5(dev, report):
     return entry, b_extra, res
 
 
+def phase_probes(dev, report):
+    """Each probe of ``PROBES`` once through its ``run`` on the card, its
+    launch counts set to 0 just before and read just after: its checks
+    hold (``ok``) and it launched its kernels and no other. Returns each
+    probe's result with its ``launches``."""
+    import importlib
+
+    out = {}
+    for name, (args, kernels) in PROBES.items():
+        mod = importlib.import_module(f"genome_downsampler_tpu_torch.scripts.{name}")
+        t0 = time.perf_counter()
+        reset_launches()
+        res = mod.run(dev, *args, log=lambda *a: None, **PROBE_KW.get(name, {}))
+        launches = read_launches()
+        if not res["ok"]:
+            raise AssertionError(f"{name}: a check failed: {json.dumps(res)}")
+        expect_launches(launches, *kernels)
+        res["launches"] = {k: v for k, v in launches.items() if v}
+        out[name] = res
+        log(f"  {name}{args}: ok in {time.perf_counter() - t0:.1f} s, launches "
+            f"{res['launches']}; {json.dumps(res)[:600]}  [{report}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
@@ -3077,6 +3124,15 @@ def main(argv=None) -> int:
     entries.append(pack_entry)
     next(e for e in entries if e["name"] == "blocked_sweep").update(b_extra)
     print(json.dumps({"config5": c5}))
+    torch.cuda.empty_cache()
+    phase("[19] the probes (scripts.bench_*) on the card at small sizes")
+    probes = phase_probes(dev, report)
+    for ent in entries:
+        got = {k: v["launches"][ent["name"]] for k, v in probes.items()
+               if ent["name"] in v["launches"]}
+        if got:
+            ent["probe_launches"] = got
+    print(json.dumps({"probes": probes}))
     phase(None)
     log(f"  total wall time {time.perf_counter() - t_start:.1f} s")
 

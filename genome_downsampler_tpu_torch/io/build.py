@@ -7,6 +7,9 @@ Several processes may ask at once (test workers): the build holds an
 exclusive lock on ``build/gd_host/lock`` and re-checks under it, so one
 ``g++`` runs per tree, and it writes under a private name and renames, so
 no process ever loads a half-written library.
+
+``GD_HOST_SO`` names a prebuilt library to load instead, with no check and
+no build: ``scripts/run_asan.sh`` points it at an AddressSanitizer build.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ def _fresh(so: Path) -> bool:
 
 def build_bamio(force: bool = False) -> Path:
     """Path of the host library, compiling it first if it is missing or
-    older than a source."""
+    older than a source; the path ``GD_HOST_SO`` names, if it is set."""
+    override = os.environ.get("GD_HOST_SO")
+    if override:
+        return Path(override)
     if not force and _fresh(_SO):
         return _SO
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -36,9 +36,10 @@ import time
 import numpy as np
 import torch
 
-from genome_downsampler_tpu_torch.device import gpu_report, require_cuda, resolve_device
+from genome_downsampler_tpu_torch.device import resolve_device
 from genome_downsampler_tpu_torch.ops import device_pack
 from genome_downsampler_tpu_torch.ops.blocked import blocked_windowed_sweep
+from genome_downsampler_tpu_torch.scripts import probe_main, sync
 from genome_downsampler_tpu_torch.solvers.native_greedy import native_greedy_select
 from genome_downsampler_tpu_torch.solvers.native_mcmf import mcmf_select_convex
 
@@ -79,11 +80,6 @@ def covers_target(sel: torch.Tensor, target: torch.Tensor, read_len: int = READ_
     return bool(torch.all(cs[read_len:] - cs[:sel.numel()] >= target.reshape(-1)))
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def run(device, reads: int, m: int, *, n: int = N, windows: int = W, log=print) -> dict:
     """Config-5's pipeline on ``device`` (the kernels on a card, their plain
     twins on the CPU) for ``reads`` reads at M = ``m``; ``n`` and
@@ -101,7 +97,7 @@ def run(device, reads: int, m: int, *, n: int = N, windows: int = W, log=print) 
     laps = {}
 
     def lap(name, t0):
-        _sync(dev)
+        sync(dev)
         laps[name] = time.perf_counter() - t0
         return time.perf_counter()
 
@@ -187,19 +183,14 @@ def _args(argv):
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
-    log = lambda *a: print(*a, flush=True)  # noqa: E731
     if "--qmcp" in argv:
-        res = run_qmcp(*_args([a for a in argv if a != "--qmcp"]), log=log)
+        res = run_qmcp(*_args([a for a in argv if a != "--qmcp"]),
+                       log=lambda *a: print(*a, flush=True))
         print(json.dumps(res), flush=True)
         if not res["valid"]:
             raise SystemExit("QMCP selection leaves coverage below the capped target")
         return
-    dev = require_cuda()
-    log(gpu_report())
-    res = run(dev, *_args(argv), log=log)
-    print(json.dumps(res), flush=True)
-    if not res["ok"]:
-        raise SystemExit("config-5 check failed")
+    probe_main(run, *_args(argv))
 
 
 if __name__ == "__main__":

@@ -40,6 +40,14 @@ required = {
     "genome_downsampler_tpu_torch.scripts.bench_kernel_ablate",
     "genome_downsampler_tpu_torch.scripts.kernel_variants",
     "genome_downsampler_tpu_torch.scripts.bench_chr1",
+    "genome_downsampler_tpu_torch.scripts.asan_exercise",
+    "genome_downsampler_tpu_torch.scripts.bench_kernel",
+    "genome_downsampler_tpu_torch.scripts.bench_io",
+    "genome_downsampler_tpu_torch.scripts.bench_blocked",
+    "genome_downsampler_tpu_torch.scripts.bench_config4_probe",
+    "genome_downsampler_tpu_torch.scripts.bench_e2e_quick",
+    "genome_downsampler_tpu_torch.scripts.bench_w_scaling",
+    "genome_downsampler_tpu_torch.scripts.bench_sharded_qmcp",
     "genome_downsampler_tpu_torch.ops.device_pack",
     "genome_downsampler_tpu_torch.solvers.batched",
     "genome_downsampler_tpu_torch.solvers.device_sweep",
