@@ -124,7 +124,8 @@ package. Phases, each of which raises on failure:
     150 bp over 250 Mb, M=30; W=64, B=128, L=256, cap=128) at full size:
     the pack kernel (``ops/csrc/device_pack.cu``: the reads generated and
     bucketed on the card) bit-equal to its twin on the card (packed,
-    counts, coverage difference, target, largest group), both timed, one
+    counts, coverage difference, target, largest group), both timed, and
+    at each card case (``testing/pack_cases.py``, down to n = 1,000), one
     kernel B pass over its codes timed (ns per position at W=64) and the
     script's coverage check timed on that pass's output; then
     the main path, ``python -m genome_downsampler_tpu_torch.scripts.
@@ -215,8 +216,9 @@ the variants, one kernel of two entries; ``gd_blocked_ablate``: the
 ablation; ``gd_push_relabel_solve``: the push-relabel kernel, whose
 four-barrier version's entry, which takes one hop-table row a read, is
 also taken with its own inputs; the wide path's earlier entry, with an
-extra ``wide_tile``, is also taken). Each other source is built into its
-own library under ``build/against/``, and the port's source of the same
+extra ``wide_tile``, is also taken; ``gd_device_pack``: the pack
+kernel). Each other source is built into its own library under
+``build/against/``, and the port's source of the same
 kernel compiled beside it, all with ``-Xptxas -v`` (registers and spills
 per instantiation are printed). Phases 1 and 2 run, then each version is
 held bit-equal to the port's and the two are timed in turns (other, port,
@@ -235,8 +237,11 @@ the 3,000-base cut, config-1 and the QMCP edge
 default row (n=30,208, L=256), its first 4,096 positions and an L=64 row,
 where the port's are first held to kernel A; the ablation, all seven modes,
 on the bench_kernel_ablate default (checked on its first 4 blocks and on
-phase 12's W=4, L=64 case). It ends with the turns' JSON
-object instead of the three lines.
+phase 12's W=4, L=64 case); the pack kernel on every card case
+(``testing/pack_cases.py``) and config-5, timed at config-5 and at the
+smallest card genome, its outputs filled before each launch as the earliest
+source needs them. It ends with the turns' JSON object instead of the three
+lines.
 """
 
 from __future__ import annotations
@@ -363,11 +368,11 @@ MAX_INSERT = 600
 # script's selected count on the same reads (BASELINE.md:74), which the
 # port's solve and its host oracle must both give
 C5_SELECTED = 50_240_206
-# int32 ops a read of the pack kernel's first pass: the Weyl product and
-# its mod, the window's division and remainder, the block's division and
-# remainder, the group's and the code's multiply-adds, the slot's compare
-# (its three atomics and its code are bytes)
-PACK_OPS = 9
+# int32 ops a candidate of the pack kernel (csrc/device_pack.cu), which
+# walks 2^32 of them in all whatever the reads: the step's add, the add of
+# 2^32 - r whose carry is the compare, and the count's add of that carry (a
+# position's set-up and the look-back's candidates are not counted)
+PACK_CANDIDATE_OPS = 3
 # gd_blocked_sweep_wide as its earlier sources declared it: gd_blocked_sweep's
 # arguments, then wide_tile (the first); gd_blocked_sweep's arguments (up
 # to L = 4,096, without the workspace and the tier); gd_blocked_select
@@ -644,10 +649,11 @@ def start_against_builds(paths):
 # one instantiation in ptxas -v's output: the kernel, its template arguments
 # (slots per lane and the target or takes mode, or the ablation's mode; L
 # for kernel C; the tier and auto targets for the wide path), spills and
-# registers
+# registers; the pack's kernels before its redesign had no _kernel suffix
 PTXAS_ENTRY = re.compile(
     r"Compiling entry function '[^']*?(blocked_sweep_wide|blocked_sweep|dense_sweep|blocked_select"
-    r"|sweep_variant|blocked_ablate|ssp|push_relabel)_kernel"
+    r"|sweep_variant|blocked_ablate|ssp|push_relabel|pack|scatter_reads|sort_groups)"
+    r"(?:_kernel)?"
     r"(?:ILi(\d+)E(?:L[bi](\d)E)?)?[^']*'.*?(\d+) bytes spill stores, (\d+) bytes spill "
     r"loads.*?Used (\d+) registers", re.S)
 
@@ -1080,6 +1086,37 @@ def turns_blocked_ablate(dev, c4):
     return checks, timed
 
 
+def turns_device_pack(dev, c4):
+    """The pack kernel's cells: bit-equal on every card case (PACK_CASES)
+    and on config-5, timed at config-5 and at the smallest card genome.
+    Before each launch the outputs are filled as the first source needs
+    them (``packed`` -1, the rest 0); a later source overwrites them."""
+    import torch
+
+    from genome_downsampler_tpu_torch.ops import build, device_pack
+    from genome_downsampler_tpu_torch.scripts import bench_chr1 as c5
+    from genome_downsampler_tpu_torch.testing.pack_cases import PACK_CASES
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(lib, r, n, W, B, L, cap):
+        win, nbw, n_pad = device_pack.geometry(n, W, B)
+        outs = [torch.full((nbw, W, cap), -1, dtype=torch.int32, device=dev),
+                torch.zeros((nbw, W), dtype=torch.int32, device=dev),
+                torch.zeros(n_pad + 1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev)]
+        build.check("gd_device_pack", lib.gd_device_pack(
+            *(o.data_ptr() for o in outs), r, n, c5.READ_LEN, W, win, B, L, cap, stream))
+        return outs
+
+    config5 = (c5.READS, c5.N, c5.W, c5.B, c5.L, c5.CAP)
+    small = min(PACK_CASES, key=lambda c: c[1])
+    checks = [lambda lib, c=case: run(lib, *c) for case in (*PACK_CASES, config5)]
+    timed = {"config-5": (lambda lib: run(lib, *config5), c5.READS, 5, "read"),
+             f"n={small[1]}": (lambda lib: run(lib, *small), small[0], 5, "read")}
+    return checks, timed
+
+
 # the kernels --against takes, by the C entry the other source defines: the
 # port's source of the kernel and the function that makes its cells
 AGAINST_KERNELS = {"gd_blocked_ablate": ("blocked_ablate.cu", turns_blocked_ablate),
@@ -1090,7 +1127,8 @@ AGAINST_KERNELS = {"gd_blocked_ablate": ("blocked_ablate.cu", turns_blocked_abla
                    "gd_blocked_select": ("blocked_select.cu", turns_blocked_select),
                    "gd_sweep_variant": ("sweep_variants.cu", turns_sweep_variants),
                    "gd_ssp_solve": ("ssp.cu", turns_ssp),
-                   "gd_push_relabel_solve": ("push_relabel.cu", turns_push_relabel)}
+                   "gd_push_relabel_solve": ("push_relabel.cu", turns_push_relabel),
+                   "gd_device_pack": ("device_pack.cu", turns_device_pack)}
 # a kernel whose source defines more than one C entry: all of them
 AGAINST_ENTRIES = {"gd_sweep_variant": ("gd_sweep_variant_c", "gd_sweep_variant_b")}
 
@@ -2854,15 +2892,13 @@ def phase_sharded(dev, report):
     return out, kernel_launches
 
 
-def pack_bound(r, packed, counts, diff):
-    """The pack kernel's ``(bound_ms, bound_by)``: its outputs written once
+def pack_bound(packed, counts, diff):
+    """The pack's ``(bound_ms, bound_by)``: its outputs written once
     (``packed``, ``counts``, ``diff``; nothing is read, the reads come from
-    their index) and PACK_OPS int32 operations a read; and the time of the
-    traffic its design moves (bytes): those outputs, a code stored and
-    three 4-byte atomics a read, and ``packed`` read and written once more
-    by the sort."""
+    their index); and its design's floor, the larger of those bytes and
+    the 2^32 candidates at PACK_CANDIDATE_OPS int32 operations each."""
     out = 4 * (packed.numel() + counts.numel() + diff.numel())
-    return bound(PACK_OPS * r, out), bound(0, out + 16 * r + 8 * packed.numel())[0]
+    return bound(0, out), bound(PACK_CANDIDATE_OPS * 2**32, out)[0]
 
 
 def phase_config5(dev, report):
@@ -2879,6 +2915,7 @@ def phase_config5(dev, report):
     from genome_downsampler_tpu_torch.ops import blocked, device_pack
     from genome_downsampler_tpu_torch.scripts import bench_chr1 as c5
     from genome_downsampler_tpu_torch.scripts import best_ms
+    from genome_downsampler_tpu_torch.testing.pack_cases import PACK_CASES
 
     r, n, W, B, L = c5.READS, c5.N, c5.W, c5.B, c5.L
     geo = dict(block=B, span=L, cap=c5.CAP, read_len=c5.READ_LEN)
@@ -2892,16 +2929,24 @@ def phase_config5(dev, report):
         raise AssertionError(f"pack kernel fill {got[3]}, twin {ref[3]}")
     del ref
     packed, counts, diff, fill = got
-    (bound_ms, bound_by), design_ms = pack_bound(r, packed, counts, diff)
-    # the wrapper's fills of its outputs, which ms includes
-    fills_ms = best_ms(lambda: (torch.full_like(packed, -1), torch.zeros_like(counts),
-                                torch.zeros_like(diff)), dev)[1]
+    (bound_ms, bound_by), design_ms = pack_bound(packed, counts, diff)
     del got, diff
     log(f"  pack kernel == plain twin at config-5 ({r} reads, n={n}, W={W}: packed "
         f"{tuple(packed.shape)}, counts, coverage difference, target, fill {fill}): "
-        f"kernel {ms:.3f} ms (the outputs' fills alone {fills_ms:.3f} ms), twin "
-        f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), the design's "
-        f"traffic {design_ms:.4f} ms  [{report}]")
+        f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}), the design's floor {design_ms:.4f} ms  [{report}]")
+    # the card cases: down to n = 1,000, where each position's candidates
+    # are split over a cluster
+    cases_ms = {}
+    for cr, cn, cw, cb, cl, ccap in PACK_CASES:
+        cgeo = dict(block=cb, span=cl, cap=ccap, read_len=c5.READ_LEN)
+        case, cases_ms[cn] = best_ms(lambda: device_pack.pack_reads(cr, cn, cw, dev, **cgeo),
+                                     dev)
+        err = max(err, max_abs_err(case[:3], device_pack.pack_reads_plain(cr, cn, cw, dev,
+                                                                           **cgeo)[:3]))
+        log(f"  pack kernel at n={cn} ({cr} reads, W={cw}, B={cb}, L={cl}, cap={ccap}; "
+            f"about {2**32 // (cn - c5.READ_LEN + 1)} candidates a position) == plain twin: "
+            f"{cases_ms[cn]:.3f} ms, beside config-5's {ms:.3f} ms  [{report}]")
     z = torch.zeros((W, L), dtype=torch.int32, device=dev)
     out, pass_ms = best_ms(lambda: blocked.blocked_sweep_pass(packed, counts, target, z, z,
                                                               W, B, L), dev, 2)
@@ -2945,9 +2990,10 @@ def phase_config5(dev, report):
         "replaces": "scripts/bench_chr1.py:147",
         "launches": launches["device_pack"], "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "design_traffic_ms": design_ms, "fills_ms": fills_ms,
+        "library_ms": None, "design_traffic_ms": design_ms,
         "timed_on": f"config-5: {r} reads over {n} bases, W={W}, B={B}, L={L}, "
-                    f"cap={c5.CAP} (allocation, fills and the fill's read back included)",
+                    f"cap={c5.CAP} (allocation and the fill's read back included)",
+        "cases_ms": cases_ms,
     }
     b_extra = {"config5_launches": launches["blocked_sweep"], "config5_pass_ms": pass_ms,
                "config5_ns_per_position": 1e6 * pass_ms / positions,
@@ -2984,8 +3030,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke test of the port on one GPU.")
     ap.add_argument("--against", action="append", default=[], metavar="OTHER.cu",
                     help="time kernel A, B, B's wide path, C, the SSP kernel, the "
-                         "push-relabel kernel, the variants or the ablation (by the C "
-                         "entries OTHER.cu defines) "
+                         "push-relabel kernel, the variants, the ablation or the pack "
+                         "kernel (by the C entries OTHER.cu defines) "
                          "against another version of its source, in turns "
                          "(phases 1 and 2 only); may repeat")
     args = ap.parse_args(argv)

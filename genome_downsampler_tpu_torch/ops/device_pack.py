@@ -17,9 +17,20 @@ group's codes are sorted ascending before the ``-1`` pads, as the port's
 packers emit them.
 
 ``pack_reads`` runs the plain twin ``pack_reads_plain`` (an argsort of the
-groups) on the CPU and the CUDA kernel (``csrc/device_pack.cu``: slots by
-atomics, then a sort of each group in shared memory) on a card, or raises;
-``pack_reads.launches`` counts its kernel launches.
+groups) on the CPU and the CUDA kernel (``csrc/device_pack.cu``) on a card,
+or raises; ``pack_reads.launches`` counts its kernel launches. The kernel
+goes by position, not by read. The multiplier ``WEYL`` is odd, so ``i ->
+(i * WEYL) mod 2^32`` is a bijection of ``[0, 2^32)`` with the inverse
+``WEYL_INVERSE``; the reads that start at ``s`` are exactly the ``i < r``
+among ``((s + j * m) * WEYL_INVERSE) mod 2^32`` for the ``j`` with ``s + j *
+m < 2^32`` (``m = n - read_len + 1``), and since ``r < 2^31`` each read is
+one such candidate of one position. A CTA counts its run of positions'
+starts ``c(s)`` that way (``2^32`` candidates in all, whatever ``r`` is),
+and every output follows from ``c``: a group's row is ``c(s)`` copies of
+each position's code in order, then ``-1``; ``counts`` the block's sum;
+``diff[s] = c(s) - c(s - read_len)``. Each output element is written once,
+with no atomic on ``packed`` or ``diff`` and no sort; what bounds it is the
+outputs' bytes and the candidates' integer operations (the source's note).
 """
 
 from __future__ import annotations
@@ -29,9 +40,11 @@ import torch
 from genome_downsampler_tpu_torch.ops import build
 
 WEYL = 2654435761
-# the kernel's sort keeps a group's codes in shared memory: 8 warps of
-# cap ints a CTA (csrc/device_pack.cu)
-MAX_CAP = 1024
+WEYL_INVERSE = 244002641  # WEYL * WEYL_INVERSE = 1 mod 2^32
+# the kernel keeps a run's start counts and the read_len before it, at most
+# 2 * 4096 + 1 ints, in shared memory; a run is at least one block
+# (csrc/device_pack.cu)
+MAX_BLOCK = 4096
 
 
 def geometry(n: int, windows: int, block: int) -> tuple[int, int, int]:
@@ -51,10 +64,11 @@ def weyl_starts(r: int, n: int, read_len: int, device) -> torch.Tensor:
 def _check_args(r, n, windows, block, span, cap, read_len):
     win, nbw, n_pad = geometry(n, windows, block)
     if not (1 <= r < 1 << 31 and 1 <= read_len <= n and read_len <= span
-            and n_pad < 1 << 31 and block * span < 1 << 31 and 1 <= cap <= MAX_CAP):
+            and n_pad < 1 << 31 and block * span < 1 << 31 and 1 <= block <= MAX_BLOCK
+            and cap >= 1):
         raise ValueError(
             f"device pack takes 1 <= reads < 2^31, read_len <= min(n, max_span), "
-            f"W * win < 2^31, block * max_span < 2^31 and 1 <= cap <= {MAX_CAP}; got "
+            f"W * win < 2^31, block * max_span < 2^31, block <= {MAX_BLOCK} and cap >= 1; got "
             f"reads={r}, n={n}, W={windows}, block={block}, max_span={span}, "
             f"cap={cap}, read_len={read_len}")
     return win, nbw, n_pad
@@ -104,10 +118,11 @@ def pack_reads(r, n, windows, device, *, block, span, cap, read_len):
     if dev.type != "cuda":
         raise ValueError(f"no device pack for device {dev}")
     win, nbw, n_pad = _check_args(r, n, windows, block, span, cap, read_len)
-    packed = torch.full((nbw, windows, cap), -1, dtype=torch.int32, device=dev)
-    counts = torch.zeros((nbw, windows), dtype=torch.int32, device=dev)
-    diff = torch.zeros(n_pad + 1, dtype=torch.int32, device=dev)
-    fill = torch.zeros(1, dtype=torch.int32, device=dev)
+    # the kernel writes every element; its C entry zeroes fill first
+    packed = torch.empty((nbw, windows, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty((nbw, windows), dtype=torch.int32, device=dev)
+    diff = torch.empty(n_pad + 1, dtype=torch.int32, device=dev)
+    fill = torch.empty(1, dtype=torch.int32, device=dev)
     lib = build.load_kernels()
     with torch.cuda.device(dev):
         rc = lib.gd_device_pack(

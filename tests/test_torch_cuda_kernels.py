@@ -25,7 +25,7 @@ from genome_downsampler_tpu_torch.solvers.native_greedy import (
     native_greedy_select,
 )
 from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
-from genome_downsampler_tpu_torch.testing import variant_cases
+from genome_downsampler_tpu_torch.testing import pack_cases, variant_cases
 from genome_downsampler_tpu_torch.testing.flow_cases import (
     BOUNDARY_CASES as FLOW_BOUNDARY_CASES,
     CAPS,
@@ -1233,10 +1233,9 @@ def test_mesh_engines_over_nccl_at_world_size_one(cuda):
 
 
 # (reads, genome, W, block, max_span, cap): config-5's geometry at 60x and
-# at 225x with a deeper cap, and a small odd one
-PACK_CASES = [(2_000_000, 5_000_000, 8, 128, 256, 128),
-              (3_000_000, 2_000_000, 64, 128, 256, 512),
-              (1_000, 10_000, 3, 64, 192, 32)]
+# at 225x with a deeper cap, a small odd one, n_pad == n, and n = 1,000,
+# where each position's candidates are split over a cluster
+PACK_CASES = pack_cases.PACK_CASES
 
 
 @pytest.mark.parametrize("r,n,W,B,L,cap", PACK_CASES)
