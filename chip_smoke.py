@@ -82,10 +82,12 @@ package. Phases, each of which raises on failure:
 16. ``quasi-mcp-flow-cuda`` (push-relabel max-flow: one launch of the
     push-relabel kernel a solve, ``ops/csrc/push_relabel.cu``) through the
     registry, warm, beside ``mcp-cpu``, at the 3,000-base cut, config-1,
-    the reference's largest workload (1M pairs over 30,000 bases, M=1000)
-    and artic-1M-30kb (1M ARTIC amplicon pairs, M=1000, the reference's
-    users' data; its twin takes about a minute): one kernel launch and at
-    most 2 host reads a solve, coverage valid and fewer reads than given;
+    the reference's largest workload (1M pairs over 30,000 bases, M=1000),
+    artic-1M-30kb (1M ARTIC amplicon pairs, M=1000, the reference's
+    users' data; its twin takes about a minute) and artic-25k-30kb (the
+    same layout at a clinical sample's 25,000 pairs, M=100): one kernel
+    launch and at most 2 host reads a solve, coverage valid and fewer
+    reads than given;
     on the same inputs the kernel's final flows, excess, labels, step,
     excess left, global relabels and closure rounds equal to its twin (the
     torch program of ``solvers/push_relabel.py``) on the card, its read set
@@ -333,10 +335,14 @@ FLOW_LARGEST = (1_000_000, 30_000, 1000)
 # primer start), M=1000, whose deep stacks give long arc segments and few
 # distinct read arcs
 FLOW_ARTIC = (1_000_000, 29_903, 1000)
+# the same layout at a clinical sample's size (25,000 pairs, M=100: about
+# 255 reads at each primer start), where supersteps are short
+FLOW_ARTIC_CLINICAL = (25_000, 29_903, 100)
 # phase 16's cells: (label, (pairs, genome, M), timed launches, read set)
 FLOW_CELLS = (("3,000-base cut", SSP_CUT, 5, "uniform"), ("config-1", C1, 3, "uniform"),
               ("1M pairs over 30 kb", FLOW_LARGEST, 3, "uniform"),
-              ("artic-1M-30kb", FLOW_ARTIC, 1, "artic"))
+              ("artic-1M-30kb", FLOW_ARTIC, 1, "artic"),
+              ("artic-25k-30kb", FLOW_ARTIC_CLINICAL, 3, "artic"))
 # bytes a superstep moves at the least: one read of the arc table's five
 # int32 columns and the two label gathers, 4 bytes each, per arc the run's
 # walks need (the eligible nodes' arcs up to the one that spends the
@@ -904,10 +910,10 @@ def hop_stats(prep):
 
 def turns_push_relabel(dev, c4):
     """The push-relabel kernel's cells: phase 16's (the 3,000-base cut,
-    config-1, 1M pairs over 30 kb, artic-1M-30kb) and the 900,000-node
-    workspace case of the card tests (max_supersteps 26, as they run it),
-    the six state arrays and (step, excess left, global relabels, closure
-    rounds) bit-equal on each; timed a round. Each source gets its own
+    config-1, 1M pairs over 30 kb, artic-1M-30kb, artic-25k-30kb) and the
+    900,000-node workspace case of the card tests (max_supersteps 26, as
+    they run it), the six state arrays and (step, excess left, global
+    relabels, closure rounds) bit-equal on each; timed a round. Each source gets its own
     inputs: the four-barrier source's entry (25 arguments) the per-read hop
     tables, the port's the groups (``scripts/flow_round_split.py``)."""
     import torch
@@ -2066,9 +2072,9 @@ def flow_bound(reads, arcs, n, stats):
 
 def phase_push_relabel(dev, report):
     """quasi-mcp-flow-cuda through the registry, warm, beside mcp-cpu, at
-    the 3,000-base cut, config-1, 1M pairs over 30 kb and artic-1M-30kb:
-    one push-relabel kernel launch a solve, at most 2 host reads, coverage
-    valid, the selection smaller than the reads; on the same inputs the
+    the 3,000-base cut, config-1, 1M pairs over 30 kb, artic-1M-30kb and
+    artic-25k-30kb: one push-relabel kernel launch a solve, at most 2 host
+    reads, coverage valid, the selection smaller than the reads; on the same inputs the
     kernel equal to its twin on the card (state, step, excess left, counts)
     and timed; the reads against the distinct read arcs the hop tables hold
     and the longest arc segment; at the cut the solve equal to the CPU run;
@@ -3154,7 +3160,7 @@ def main(argv=None) -> int:
     ssp_entry["busy_share"] = phase_profile(dev, report)
     torch.cuda.empty_cache()
     phase("[16] quasi-mcp-flow-cuda (the push-relabel kernel) vs its twin: the "
-          "3,000-base cut, config-1, 1M pairs over 30 kb, artic-1M-30kb")
+          "3,000-base cut, config-1, 1M pairs over 30 kb, artic-1M-30kb, artic-25k-30kb")
     entries.append(phase_push_relabel(dev, report))
     torch.cuda.empty_cache()
     phase("[17] the mesh engines and --sharded on the card")

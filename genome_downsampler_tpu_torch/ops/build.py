@@ -8,6 +8,12 @@ ctypes: pointers and the CUDA stream pass as ``c_void_p``, sizes as
 ``c_int64``. Every entry point returns the ``cudaError_t`` of its launch;
 ``check`` raises on a non-zero code. A missing ``nvcc``, a failed build or
 a failed load raises: there is no fallback.
+
+The process's one-time costs stay readable after a run: ``build_seconds``
+and ``rebuilt`` (what this process compiled, and why), ``load_seconds``
+(the freshness check, the load and the binding) and
+``first_call_seconds`` (each entry point's first call, where the card
+loads the kernel's module and launches it first).
 """
 
 from __future__ import annotations
@@ -29,6 +35,16 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 _lib = None
 #: seconds the last ``build_kernels`` call spent compiling (0.0 when cached)
 build_seconds = 0.0
+#: the sources and headers that made this process compile the library:
+#: those newer than the library it found, or all where it found none or
+#: the build was forced; empty where it loaded the library it found
+rebuilt: list = []
+#: seconds ``load_kernels`` spent checking the library's freshness,
+#: loading it (``ctypes.CDLL``) and binding its entry points, a compile
+#: left out
+load_seconds = 0.0
+#: host seconds of each entry point's first call in this process, by name
+first_call_seconds: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -89,13 +105,16 @@ def _nvcc() -> str:
 def build_kernels(force: bool = False) -> Path:
     """Compile ``ops/csrc/*.cu`` unless a library newer than every source
     and header exists; returns its path."""
-    global build_seconds
+    global build_seconds, rebuilt
     out = _BUILD_DIR / _LIB_NAME
     srcs = sorted(_CSRC.glob("*.cu"))
-    newest = max(s.stat().st_mtime for s in (*srcs, *_CSRC.glob("*.cuh")))
-    if not force and out.exists() and out.stat().st_mtime >= newest:
+    found = out.stat().st_mtime if out.exists() else None
+    stale = [s.name for s in (*srcs, *sorted(_CSRC.glob("*.cuh")))
+             if force or found is None or s.stat().st_mtime > found]
+    if not stale:
         build_seconds = 0.0
         return out
+    rebuilt = stale
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     # build under private names, then rename: concurrent first uses never
@@ -135,10 +154,35 @@ def build_kernels(force: bool = False) -> Path:
     return out
 
 
+class _FirstCall:
+    """An entry point of the library until its first call returns: that
+    call is timed into ``first_call_seconds``, and the bare function put
+    back in the library, so later calls cost nothing more."""
+
+    __slots__ = ("lib", "name", "fn")
+
+    def __init__(self, lib, name, fn):
+        self.lib, self.name, self.fn = lib, name, fn
+
+    def __call__(self, *args):
+        if self.name in first_call_seconds:  # a caller that kept this object
+            return self.fn(*args)
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args)
+        finally:
+            first_call_seconds[self.name] = time.perf_counter() - t0
+            setattr(self.lib, self.name, self.fn)
+
+    def __getattr__(self, attr):  # argtypes, restype
+        return getattr(self.fn, attr)
+
+
 def load_kernels():
     """The loaded kernel library, building it first if needed."""
-    global _lib
+    global _lib, load_seconds
     if _lib is None:
+        t0 = time.perf_counter()
         path = build_kernels()
         try:
             lib = ctypes.CDLL(str(path))
@@ -148,9 +192,11 @@ def load_kernels():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
+            setattr(lib, name, _FirstCall(lib, name, fn))
         lib.gd_cuda_error_string.restype = ctypes.c_char_p
         lib.gd_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
+        load_seconds = time.perf_counter() - t0 - build_seconds
     return _lib
 
 

@@ -64,7 +64,10 @@
 // partials: five grid barriers a phase. The walk stays one thread into a
 // step buffer of n + 2 entries (the parents form a forest). Cross-CTA data
 // is read with ld.global.cg (L2), never through a stale L1 line. int32
-// sums are added as uint32 so that they wrap as XLA's do.
+// sums are added as uint32 so that they wrap as XLA's do. Thread 0 of CTA
+// 0 reads the global timer four times a phase and keeps three laps: the
+// fixpoint rounds, each phase's reset and bucket tables before them, and
+// the phase's end (argmin, walk, push, potentials, supply).
 //
 // The chunk floor of 256 nodes (ops/ssp.py: CHUNK_FLOOR, which sets G and
 // the CTAs' ranges), chosen by measurement on the H100
@@ -101,6 +104,11 @@ __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
 }
 __device__ __forceinline__ int32_t mul32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return static_cast<long long>(t);
 }
 // (value, index) ordered lexicographically as one integer
 __device__ __forceinline__ long long make_key(int32_t v, int32_t i) {
@@ -618,7 +626,7 @@ __device__ int augment(const Net& net, const Glob& g, const Chunk& ch, Shared& s
 
 __global__ void __launch_bounds__(kThreads, 1)
     ssp_kernel(Net net, Glob g, const int32_t* __restrict__ excess0, int32_t* __restrict__ scalars,
-               int32_t phase_cap, int tables_shared, int capF) {
+               long long* __restrict__ laps, int32_t phase_cap, int tables_shared, int capF) {
   extern __shared__ __align__(16) int32_t smem[];
   __shared__ Shared sh;
   const int tid = threadIdx.x, c = blockIdx.x, G = gridDim.x;
@@ -670,7 +678,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int it_cap = min(net.B + 3, 1 << 20);
   int status = OK, phases = 0;
   long long rounds = 0;
+  // thread 0 of CTA 0: ns in the rounds, the tables and the phases' ends
+  const bool timer = c == 0 && tid == 0;
+  long long ns[3] = {0, 0, 0};
   while (status == OK && supply > 0 && phases < phase_cap) {
+    const long long t0 = timer ? global_ns() : 0;
     for (int i = tid; i < ch.cl; i += kThreads) {
       const int gi = ch.lo + i;
       ch.d[i] = ch.ex[i] > 0 ? 0 : INF;
@@ -681,6 +693,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     build_tables(net, g, ch, f0, b0);
     __syncthreads();
+    const long long t1 = timer ? global_ns() : 0;
     bool changed = true;
     int it = 0, my_chg = 0;
     for (;;) {
@@ -725,6 +738,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       ++it;
     }
     rounds += it;
+    const long long t2 = timer ? global_ns() : 0;
     // the cheapest deficit node: lexicographic argmin of (d, index); the
     // parents published for the walk, the chain's diff entries zeroed
     long long best = kNoKey;
@@ -763,6 +777,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (status == OK && pmax > PI_GUARD) status = PI_OVERFLOW;
     supply = fold_sum(g.supP, 0, G, sh);
     ++phases;
+    if (timer) {
+      ns[0] += t2 - t1;
+      ns[1] += t1 - t0;
+      ns[2] += global_ns() - t2;
+    }
   }
   if (status == OK && supply > 0) status = DEGENERATE;
   if (c == 0 && tid == 0) {
@@ -770,6 +789,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     scalars[1] = status;
     scalars[2] = phases;
     scalars[3] = static_cast<int32_t>(min(rounds, static_cast<long long>(INT_MAX)));
+    for (int k = 0; k < 3; ++k) laps[k] = ns[k];
   }
 }
 
@@ -789,7 +809,10 @@ constexpr int64_t kCtrlWords = 16, kPartialWords = 16, kWsNodeArrays = 10;
 // orderB: int32[B] the bucket ids by bend1 and by bstart; rangeF, rangeB:
 // int32[G+1] each CTA's range in them (CTA c owns the nodes [c C, c C + C),
 // C = ceil((n+1) / G)); capF, capB: the largest range; flow: int32[B] out;
-// scalars: int32[4] out (supply, status, phases, rounds); ws: the workspace.
+// scalars: 40 bytes out, 8-byte aligned: int32[4] (supply, status, phases,
+// rounds), then int64[3], thread 0 of CTA 0's global-timer ns in the
+// fixpoint rounds, in each phase's reset and bucket tables, and in the
+// phases' ends; ws: the workspace.
 extern "C" int gd_ssp_solve(const void* bstart, const void* bend1, const void* off0,
                             const void* cap, const void* pool, const void* run_lo,
                             const void* run_hi, const void* excess0, const void* orderF,
@@ -848,9 +871,10 @@ extern "C" int gd_ssp_solve(const void* bstart, const void* bend1, const void* o
   if (err != cudaSuccess) return (int)err;
   const int32_t* ex0 = static_cast<const int32_t*>(excess0);
   int32_t* sc = static_cast<int32_t*>(scalars);
+  long long* laps = static_cast<long long*>(scalars) + 2;
   int32_t pc = static_cast<int32_t>(phase_cap);
   int cap_f = static_cast<int>(capF);
-  void* args[] = {&net, &g, &ex0, &sc, &pc, &tables_shared, &cap_f};
+  void* args[] = {&net, &g, &ex0, &sc, &laps, &pc, &tables_shared, &cap_f};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(ssp_kernel),
                                     dim3(static_cast<unsigned>(G)), dim3(kThreads), args, smem, st);
   if (err != cudaSuccess) return (int)err;

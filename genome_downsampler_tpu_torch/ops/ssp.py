@@ -14,7 +14,11 @@ path allows and updates the Johnson potentials; phases run until the supply
 is 0 or a status other than ``OK`` stops them.
 
 ``ssp_solve`` runs the twin on CPU tensors and launches the kernel on CUDA
-tensors, or raises; ``ssp_solve.launches`` counts its kernel launches. The
+tensors, or raises; ``ssp_solve.launches`` counts its kernel launches. On
+the card ``laps``, if given, receives the kernel's global-timer
+nanoseconds in the fixpoint rounds (``rounds_ns``), in each phase's reset
+and bucket tables (``tables_ns``) and in the phases' ends (argmin, walk,
+push, potentials and supply: ``phase_end_ns``). The
 twin reproduces every tie rule of the JAX program (the parents decide the
 paths, the paths the flows): scans take the (value, index) minimum with the
 smaller index on equal values; updates happen only on strict improvement;
@@ -30,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from genome_downsampler_tpu_torch.ops import build
+from genome_downsampler_tpu_torch.utils.profiling import annotate
 
 INF = 1 << 30
 IMAX = 2**31 - 1
@@ -289,7 +294,8 @@ def bucket_ranges(bstart, bend1, n: int, G: int, C: int):
     return out
 
 
-def ssp_solve(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap):
+def ssp_solve(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap,
+              laps=None):
     """Run SSP phases to completion (the SSP kernel: one cooperative launch
     per solve).
 
@@ -300,22 +306,30 @@ def ssp_solve(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap)
     ``(flow[B] int32 tensor, supply, status, phases, rounds)``, the last four
     Python ints: the supply left, the status code, the phases run and the
     fixpoint rounds over all phases. On the card it raises where the card
-    lacks cooperative launch or the grid's CTAs cannot all be resident."""
+    lacks cooperative launch or the grid's CTAs cannot all be resident, and
+    fills ``laps`` (a dict), if given, with the kernel's three laps."""
     if excess.device.type == "cpu":
         return ssp_solve_plain(bstart, bend1, off0, cap, pool, run_lo, run_hi,
                                excess, phase_cap)
     if excess.device.type != "cuda":
         raise ValueError(f"no SSP solve for device {excess.device}")
     out = launch(build.load_kernels(), bstart, bend1, off0, cap, pool, run_lo, run_hi,
-                 excess, phase_cap)
+                 excess, phase_cap, laps)
     ssp_solve.launches += 1
     return out
 
 
-def launch(lib, bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap):
+LAPS = ("rounds_ns", "tables_ns", "phase_end_ns")
+
+
+def launch(lib, bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_cap,
+           laps=None):
     """One launch of ``lib``'s ``gd_ssp_solve`` (the kernel library, or
     another build of the same source) on CUDA tensors, uncounted; returns
-    what ``ssp_solve`` returns."""
+    what ``ssp_solve`` returns, and fills ``laps``, if given, with the
+    kernel's three laps (``LAPS``). The bucket tables and their one host
+    read run in the profiler region ``qmcp.tables``, the launch and the
+    read of its scalars in ``qmcp.kernel``."""
     B, n = _solve_args(bstart, bend1, off0, cap, pool, run_lo, run_hi, excess)
     if not 0 <= phase_cap <= IMAX:
         raise ValueError(f"phase_cap {phase_cap} outside int32")
@@ -323,27 +337,34 @@ def launch(lib, bstart, bend1, off0, cap, pool, run_lo, run_hi, excess, phase_ca
     G, C = grid_shape(n, torch.cuda.get_device_properties(dev).multi_processor_count)
     if _KERNEL_NODE_ARRAYS * 4 * (-(-C // 4) * 4) > _SMEM_BUDGET:
         raise ValueError(f"n={n}: {C} nodes a CTA exceed the SSP kernel's shared memory")
-    order_f, range_f, srt_f, order_b, range_b, srt_b = bucket_ranges(bstart, bend1, n, G, C)
-    cap_f, cap_b, lo_f, hi_f, lo_b, hi_b = torch.stack([
-        (range_f[1:] - range_f[:-1]).max(), (range_b[1:] - range_b[:-1]).max(),
-        srt_f[0], srt_f[-1], srt_b[0], srt_b[-1]]).tolist()
+    with annotate("qmcp.tables"):
+        order_f, range_f, srt_f, order_b, range_b, srt_b = bucket_ranges(bstart, bend1, n, G,
+                                                                          C)
+        cap_f, cap_b, lo_f, hi_f, lo_b, hi_b = torch.stack([
+            (range_f[1:] - range_f[:-1]).max(), (range_b[1:] - range_b[:-1]).max(),
+            srt_f[0], srt_f[-1], srt_b[0], srt_b[-1]]).tolist()
     if not (0 <= lo_f and hi_f <= n and 0 <= lo_b and hi_b <= n):
         raise ValueError(f"bucket nodes outside 0..{n}")
-    flow = torch.empty(B, dtype=_I32, device=dev)
-    scalars = torch.empty(4, dtype=_I32, device=dev)
-    ws = torch.empty(_ws_words(n, B, G), dtype=_I32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.gd_ssp_solve(
-            bstart.data_ptr(), bend1.data_ptr(), off0.data_ptr(), cap.data_ptr(),
-            pool.data_ptr(), run_lo.data_ptr(), run_hi.data_ptr(),
-            excess.data_ptr(), order_f.data_ptr(), range_f.data_ptr(),
-            order_b.data_ptr(), range_b.data_ptr(), flow.data_ptr(),
-            scalars.data_ptr(), ws.data_ptr(),
-            n, B, pool.shape[0], G, cap_f, cap_b, int(phase_cap),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check("gd_ssp_solve", rc)
-    supply, status, phases, rounds = scalars.tolist()
+    with annotate("qmcp.kernel"):
+        flow = torch.empty(B, dtype=_I32, device=dev)
+        # int32[4] (supply, status, phases, rounds), then the int64 laps
+        scalars = torch.empty(5, dtype=torch.int64, device=dev)
+        ws = torch.empty(_ws_words(n, B, G), dtype=_I32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.gd_ssp_solve(
+                bstart.data_ptr(), bend1.data_ptr(), off0.data_ptr(), cap.data_ptr(),
+                pool.data_ptr(), run_lo.data_ptr(), run_hi.data_ptr(),
+                excess.data_ptr(), order_f.data_ptr(), range_f.data_ptr(),
+                order_b.data_ptr(), range_b.data_ptr(), flow.data_ptr(),
+                scalars.data_ptr(), ws.data_ptr(),
+                n, B, pool.shape[0], G, cap_f, cap_b, int(phase_cap),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        build.check("gd_ssp_solve", rc)
+        scalars = scalars.cpu()
+    supply, status, phases, rounds = scalars[:2].view(_I32).tolist()
+    if laps is not None:
+        laps.update(zip(LAPS, scalars[2:].tolist()))
     return flow, supply, status, phases, rounds
 
 

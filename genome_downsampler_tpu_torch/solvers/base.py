@@ -14,6 +14,8 @@ A ``Solution`` is an int64 array of *read indices* (positions in the
 from __future__ import annotations
 
 import abc
+import itertools
+import sys
 
 import numpy as np
 
@@ -49,13 +51,29 @@ class SpanGuard(Solver):
     index buckets by ``end`` or encode ``span - 1``, so the registry
     removes these reads before the solve and maps indices back. Pair
     integrity is unaffected: ``find_pairs`` runs on the original batch.
+
+    Each solve is the profiler region ``entry.solve``, the root of the
+    solvers' own regions, with the process's solve number (from 1) as its
+    args; where torch is not loaded (a host-only solver) no profiler can
+    run, and there is no region.
     """
+
+    _solves = itertools.count(1)
 
     def __init__(self, inner: Solver):
         self.inner = inner
         self.uses_quality_of_reads = inner.uses_quality_of_reads
 
     def solve(self, max_coverage: int, batch: ReadBatch) -> Solution:
+        number = next(SpanGuard._solves)
+        if "torch" not in sys.modules:
+            return self._solve(max_coverage, batch)
+        from genome_downsampler_tpu_torch.utils.profiling import annotate
+
+        with annotate("entry.solve", str(number)):
+            return self._solve(max_coverage, batch)
+
+    def _solve(self, max_coverage: int, batch: ReadBatch) -> Solution:
         ok = batch.end >= batch.start
         if bool(ok.all()):
             return self.inner.solve(max_coverage, batch)

@@ -148,8 +148,10 @@ def ssp_device_flows(
     """Per-bucket take counts of the exact optimum, by the SSP on
     ``device``, which the caller names (``"cuda"``: the kernel, raising
     without a card; ``"cpu"``: its twin). ``stats``, if given, receives
-    ``phases`` and ``rounds``. Raises ``SspStatusError`` when the run ends
-    in a status other than ``OK``."""
+    ``phases`` and ``rounds``, and on the card the kernel's laps
+    ``rounds_ns``, ``tables_ns`` and ``phase_end_ns`` (``ops/ssp.py``).
+    Raises ``SspStatusError`` when the run ends in a status other than
+    ``OK``."""
     dev = resolve_device(device)
     B = bstart.shape[0]
     caps = np.diff(off)
@@ -168,7 +170,7 @@ def ssp_device_flows(
 
     flow, supply, status, phases, rounds = ssp_solve(
         i32(bstart), i32(bend + 1), i32(off[:B]), i32(caps), i32(pool),
-        i32(run_lo), i32(run_hi), i32(excess0), supply0 + 16,
+        i32(run_lo), i32(run_hi), i32(excess0), supply0 + 16, laps=stats,
     )
     if stats is not None:
         stats.update(phases=phases, rounds=rounds)
@@ -230,7 +232,8 @@ class QmcpDeviceMcmfSolver(Solver):
     than ``DEVICE_GENOME_LIMIT`` go to the host C++ MCMF; a device run
     that ends in a status other than ``OK`` raises ``SspStatusError``.
     ``last_stats`` says which engine ran (``engine``), with the phases,
-    fixpoint rounds, buckets and laps."""
+    fixpoint rounds, buckets and laps (on the card also the kernel's own,
+    ``ssp_device_flows``)."""
 
     uses_quality_of_reads = True
 

@@ -373,13 +373,14 @@ class QuasiMcpPushRelabelSolver(Solver):
     (the tests). ``last_stats`` holds ``engine`` (``"cuda"`` or
     ``"torch"``), the counts ``supersteps``, ``bodies``,
     ``global_relabels``, ``closure_rounds``, ``host_syncs`` and the laps
-    ``laps_s`` (``coverage``, ``arcs``, ``relabel``, ``supersteps``,
-    ``select``; seconds). On the card ``bodies`` equals ``supersteps`` (the
-    kernel runs no no-op body), ``relabel`` and ``supersteps`` are the
-    kernel's own global-timer laps (CTA 0's, also as ``closure_ns``,
-    ``superstep_ns`` and clock64 ``closure_cycles``, ``superstep_cycles``),
-    ``kernel`` the host's wall time from the launch to its one read, and
-    ``arcs`` the host's time to queue the tables and the preflow."""
+    ``laps_s`` (seconds): on the CPU ``coverage``, ``arcs``, ``relabel``,
+    ``supersteps`` and ``select``; on the card ``coverage``, ``arcs`` (the
+    host's time to queue the tables and the preflow), ``kernel`` (from the
+    launch to its one read) and ``select``, beside the kernel's own counts
+    (``ops/push_relabel.py::flow_solve``: CTA 0's global-timer
+    ``closure_ns`` and ``superstep_ns`` and clock64 cycles, and the arcs
+    its walks read). On the card ``bodies`` equals ``supersteps`` (the
+    kernel runs no no-op body)."""
 
     uses_quality_of_reads = False
 

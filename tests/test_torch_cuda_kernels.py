@@ -539,7 +539,7 @@ def test_ssp_kernel_raises_where_its_ctas_cannot_be_resident(cuda):
     C = -(-(n + 1) // G)
     order_f, range_f, _, order_b, range_b, _ = ssp.bucket_ranges(a[0], a[1], n, G, C)
     flow = torch.empty(B, dtype=torch.int32, device=cuda)
-    scalars = torch.empty(4, dtype=torch.int32, device=cuda)
+    scalars = torch.empty(5, dtype=torch.int64, device=cuda)  # int32[4], then 3 int64 laps
     ws = torch.empty(ssp._ws_words(n, B, G), dtype=torch.int32, device=cuda)
     lib = build.load_kernels()
     rc = lib.gd_ssp_solve(*(x.data_ptr() for x in a), order_f.data_ptr(), range_f.data_ptr(),
@@ -548,6 +548,29 @@ def test_ssp_kernel_raises_where_its_ctas_cannot_be_resident(cuda):
                           supply0 + 16, torch.cuda.current_stream(cuda).cuda_stream)
     with pytest.raises(RuntimeError, match="gd_ssp_solve"):
         build.check("gd_ssp_solve", rc)
+
+
+@pytest.mark.parametrize("seed", [6, 7])
+def test_ssp_kernel_laps_are_positive_and_fit_in_the_launch(cuda, seed):
+    """The kernel's three global-timer laps (rounds, tables, phases'
+    ends): each positive, together no longer than the launch by CUDA
+    events, and the flows, phases and rounds still the twin's."""
+    from genome_downsampler_tpu_torch.ops import build, ssp
+
+    arrays, supply0 = _ssp_inputs(seed)
+    a = [x.to(cuda) for x in arrays]
+    lib = build.load_kernels()
+    ssp.launch(lib, *a, supply0 + 16)  # the first launch's costs before the timed one
+    laps = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = ssp.launch(lib, *a, supply0 + 16, laps=laps)
+    end.record()
+    torch.cuda.synchronize()
+    ref = ssp.ssp_solve_plain(*arrays, supply0 + 16)
+    assert torch.equal(got[0].cpu(), ref[0]) and got[1:] == ref[1:]
+    assert set(laps) == set(ssp.LAPS) and min(laps.values()) > 0
+    assert sum(laps.values()) <= 1e6 * start.elapsed_time(end)
 
 
 def test_ssp_kernel_reports_an_infeasible_network(cuda):

@@ -191,7 +191,7 @@ def test_long_genome_dispatches_to_host_engine(monkeypatch):
 def test_a_device_status_raises_and_is_not_answered_by_the_host(monkeypatch):
     start, end, cost, n, m = _case("lp1")
 
-    def stopped(*args):
+    def stopped(*args, **kw):
         return torch.zeros(args[0].shape[0], dtype=torch.int32), 3, ssp.FIXPOINT_CAP, 2, 9
 
     monkeypatch.setattr(device_mcmf, "ssp_solve", stopped)
@@ -210,7 +210,7 @@ def test_a_device_status_raises_and_is_not_answered_by_the_host(monkeypatch):
 def test_a_kernel_error_is_not_caught(monkeypatch):
     start, end, cost, n, m = _case("lp2")
 
-    def failed(*args):
+    def failed(*args, **kw):
         raise RuntimeError("gd_ssp_solve: CUDA error 700 (an illegal memory access)")
 
     monkeypatch.setattr(device_mcmf, "ssp_solve", failed)
