@@ -2158,7 +2158,7 @@ def phase_push_relabel(dev, report):
                                            "closure_rounds", "host_syncs", "closure_ns",
                                            "superstep_ns", "closure_cycles",
                                            "superstep_cycles", "arcs_discharged",
-                                           "arcs_relabelled")})
+                                           "arcs_relabelled", "arcs_cta_walked")})
         cell.update(arcs=2 * batch.n_reads + 2 * n + 3 * (n + 1), laps_s=laps, ms=ms,
                     plain_ms=plain_ms, bound_ms=arc_b_ms, bound_by=b_by,
                     bound_ms_per_read=b_ms, ctas=prep["G"], valid_reads=valid,

@@ -71,22 +71,33 @@
 // and no global atomics are needed.
 //
 // A superstep is two grid barriers. Each eligible line node (excess > 0,
-// label parity == step parity) is walked by one warp along its arc segment
-// (the tail-sorted table, 32 arcs a step): residuals through the arc's
-// kind and slot, head labels from the pre-wave buffer, an int64 inclusive
-// prefix of what the admissible arcs want, each arc taking min(remaining,
-// want) exactly as the twin's segmented exclusive prefix clipped to the
-// excess; the walk stops when the excess is spent. Flow writes need no
-// atomics: an arc pushes only from label l + 1 to l and only nodes of one
-// label parity push in a wave, so at most one direction of any flow slot
-// pushes, from its one tail, and no node reads a slot's residual that
+// label parity == step parity) is walked along its arc segment (the
+// tail-sorted table): residuals through the arc's kind and slot, head
+// labels from the pre-wave buffer, an int64 inclusive prefix of what the
+// admissible arcs want, each arc taking min(remaining, want) exactly as the
+// twin's segmented exclusive prefix clipped to the excess; the walk stops
+// when the excess is spent. One warp walks a short segment, 32 arcs a
+// step. A segment of kCtaWalkArcs arcs or more (an amplicon panel's primer
+// starts and amplicon ends: hundreds to thousands of reads at one node) is
+// walked by the node's whole CTA, kTile arcs a step, with a block-wide
+// prefix carried across the tiles and the next tile's arcs loaded before
+// this tile's scan: a warp took one dependent step per 32 arcs of a
+// 10,000-arc segment while the grid waited at barrier 1. A CTA walks its
+// long nodes one after another, then its warps walk the short ones. The
+// order of the walks is free, since each flow slot is written by its arc's
+// tail alone and the sums into `in` do not depend on order. Flow writes
+// need no atomics: an arc pushes only from label l + 1 to l and only nodes
+// of one label parity push in a wave, so at most one direction of any flow
+// slot pushes, from its one tail, and no node reads a slot's residual that
 // another node writes in the same wave (the label test comes first, and
-// fails for the reverse arc of a pushing arc). What reaches a head goes by
-// an integer atomicAdd into `in`, whose sums do not depend on order. After
-// barrier 1 each owner applies excess -= out - in and relabels eligible
-// nodes that pushed nothing to min(1 + min label over post-wave residual
-// arcs, 2 (n + 3)), reading head labels from the pre-wave buffer and
-// writing the next buffer (other CTAs still read the old one); barrier 2
+// fails for the reverse arc of a pushing arc; a CTA walk loads the flow
+// beside the label and drops it where the test fails). What reaches a head
+// goes by an integer atomicAdd into `in`, whose sums do not depend on
+// order. After barrier 1 each owner applies excess -= out - in and
+// relabels eligible nodes that pushed nothing to min(1 + min label over
+// post-wave residual arcs, 2 (n + 3)), reading head labels from the
+// pre-wave buffer and writing the next buffer (other CTAs still read the
+// old one), a long segment by its CTA, a short one by a warp; barrier 2
 // publishes the new labels and whether any node is still active, and the
 // buffers swap. `step` advances once a superstep; no-op bodies never run.
 //
@@ -95,7 +106,9 @@
 // supersteps while active and step < min(step + relabel_every,
 // max_supersteps). CTA 0 counts the global-timer nanoseconds and clock64
 // cycles inside global relabels and inside supersteps; every warp counts
-// the arcs its walks read (a superstep's bytes depend on them).
+// the arcs its walks read (a superstep's bytes depend on them), a walk
+// that stops counting to the end of its step (32 arcs a warp, kTile a
+// CTA), and thread 0 of each CTA also the arcs its CTA walks read.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -125,6 +138,17 @@ constexpr int kNodeArrays = 9;
 // a direction's compacted hop entries a CTA may hold in shared memory
 // beside its node arrays; more stay in the CTA's region of the workspace
 constexpr int kTabCapMax = 4096;
+// a node whose arc segment holds this many arcs or more is walked by its
+// whole CTA (the superstep's note), kTileItems consecutive arcs a thread,
+// kTile a step. Set on the H100: at 256 a clinical ARTIC sample's ~260-arc
+// primer segments go to their CTAs (its kernel 1.6% faster than at 1,024);
+// at 128 half the nodes of 1M uniform pairs over 30 kb (~137 arcs) do, and
+// CTAs walking dozens of nodes one after another took 13% longer there.
+// Tiles of 2 items a thread were 5.5% slower on a deep ARTIC sample, of 8
+// 0.7% faster for 40 more registers.
+constexpr int kCtaWalkArcs = 256;
+constexpr int kTileItems = 4;
+constexpr int kTile = kThreads * kTileItems;
 
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
@@ -147,7 +171,8 @@ struct Shared {
   int wv[kWarps];  // each warp's total / prefix (scans, reductions)
   int wf[kWarps];
   long long wl[kWarps];
-  int cnt, cntF, cntB;
+  long long tl[2][kWarps];  // each warp's total in a CTA walk, by tile parity
+  int cnt, cntL, cntF, cntB;
   unsigned bar_target;  // thread 0's count of grid barrier arrivals
   // after the record barrier: every chunk's carry (the min of the down
   // keys of the chunks before it), and every chunk's up aggregate, then
@@ -280,6 +305,7 @@ struct Glob {
 struct Chunk {
   // first node, nodes, items a thread holds in the scans, C, n + 1
   int lo, cl, K, C, n1;
+  int wide;  // whether a node of the chunk has a long segment (kCtaWalkArcs)
   int32_t *d, *dold, *dT, *flag, *lab, *ex, *out, *elig, *list;
   int32_t *dc, *xs, *reach;  // the closure's words (out, elig, list)
 };
@@ -626,31 +652,187 @@ __device__ void relabel(const Net& net, const Glob& g, const Chunk& ch, int i,
   if (lane == 0) ch.lab[i] = min(m + 1, cap);
 }
 
+// ---- the CTA walks of long segments ----
+
+// the flow word behind an arc's residual; kinds 0, 2 and 6 push it up
+__device__ __forceinline__ int32_t* flow_word(const Glob& g, int kind, int slot) {
+  return (kind <= 1 ? g.f_read : kind <= 3 ? g.f_chain : kind == 4 ? g.f_src : g.f_snk) + slot;
+}
+
+// this thread's kTileItems arcs from a (zeros past a1)
+__device__ __forceinline__ void load_arcs(const Net& net, int a, int a1,
+                                          int2 (&e)[kTileItems]) {
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) e[j] = a + j < a1 ? net.arcs[a + j] : make_int2(0, 0);
+}
+
+// each arc's head label and flow word (f) and residual (r) from them: every
+// load issued before any is used; an arc past the segment gets r = 0
+__device__ __forceinline__ void load_tile(const Net& net, const Glob& g, const int32_t* lab_cur,
+                                          int a, int a1, const int2 (&e)[kTileItems],
+                                          int32_t (&hl)[kTileItems], int32_t (&f)[kTileItems],
+                                          int32_t (&r)[kTileItems]) {
+  int32_t cs[kTileItems];
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    const int kind = e[j].y & 7, slot = e[j].y >> 3;
+    hl[j] = ldcg(lab_cur + e[j].x);
+    f[j] = ldcg(flow_word(g, kind, slot));
+    cs[j] = kind == 6 ? net.cap_snk[slot] : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < kTileItems; ++j) {
+    const int kind = e[j].y & 7;
+    const int32_t res = kind == 0   ? 1 - f[j]
+                        : kind == 2 ? BIG - f[j]
+                        : kind == 6 ? sub32(cs[j], f[j])
+                                    : f[j];
+    r[j] = a + j < a1 ? res : 0;
+  }
+}
+
+// The whole CTA discharges chunk node i along its long segment, kTile arcs
+// a step: each thread's kTileItems consecutive arcs, a block-wide int64
+// exclusive prefix of their wants carried across tiles in `rem`, the next
+// tile's arcs loaded before this tile's scan. `buf` alternates the warp
+// totals' buffers over the CTA's walks, so no walk waits at its end.
+// Thread 0 writes out[i] and counts the arcs read (whole tiles).
+__device__ void discharge_cta(const Net& net, const Glob& g, const Chunk& ch, Shared& sh, int i,
+                              const int32_t* lab_cur, int& buf, long long* walked) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gi = ch.lo + i, a0 = net.off[gi], a1 = net.off[gi + 1];
+  const int32_t lt = ch.lab[i], ex = ch.ex[i];
+  long long rem = ex;
+  int2 e[kTileItems], nx[kTileItems];
+  load_arcs(net, a0 + tid * kTileItems, a1, e);
+  int base = a0;
+  for (;;) {
+    const int a = base + tid * kTileItems;
+    int32_t hl[kTileItems], f[kTileItems], r[kTileItems];
+    load_tile(net, g, lab_cur, a, a1, e, hl, f, r);
+    load_arcs(net, a + kTile, a1, nx);
+    long long want[kTileItems], s = 0;
+#pragma unroll
+    for (int j = 0; j < kTileItems; ++j) {
+      want[j] = lt == hl[j] + 1 && r[j] > 0 ? r[j] : 0;
+      s += want[j];
+    }
+    long long w = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long p = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += p;
+    }
+    if (lane == 31) sh.tl[buf][warp] = w;
+    __syncthreads();
+    long long before = 0, total = 0;
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q) {
+      const long long v = sh.tl[buf][q];
+      before += q < warp ? v : 0;
+      total += v;
+    }
+    buf ^= 1;
+    // what is left before this thread's first arc
+    long long run = rem - before - (w - s);
+#pragma unroll
+    for (int j = 0; j < kTileItems; ++j) {
+      const long long amt = min(max(run, 0LL), want[j]);
+      run -= want[j];
+      if (amt > 0) {
+        const int kind = e[j].y & 7;
+        int32_t* p = flow_word(g, kind, e[j].y >> 3);
+        const int32_t d = static_cast<int32_t>(amt);
+        *p = kind == 0 || kind == 2 || kind == 6 ? add32(f[j], d) : sub32(f[j], d);
+        atomicAdd(g.in + e[j].x, d);
+      }
+    }
+    rem -= total;
+    base += kTile;
+    if (rem <= 0 || base >= a1) break;
+#pragma unroll
+    for (int j = 0; j < kTileItems; ++j) e[j] = nx[j];
+  }
+  if (tid == 0) {
+    const int read = min(base, a1) - a0;
+    walked[0] += read;
+    walked[2] += read;
+    ch.out[i] = static_cast<int32_t>(ex - max(rem, 0LL));
+  }
+}
+
+// The whole CTA relabels chunk node i along its long segment: 1 + the
+// least pre-wave head label over its post-wave residual arcs, at most
+// 2 (n + 3), a block-wide min; the loads as discharge_cta's.
+__device__ void relabel_cta(const Net& net, const Glob& g, const Chunk& ch, Shared& sh, int i,
+                            const int32_t* lab_cur, int32_t cap, int& buf, long long* walked) {
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int gi = ch.lo + i, a0 = net.off[gi], a1 = net.off[gi + 1];
+  int2 e[kTileItems], nx[kTileItems];
+  load_arcs(net, a0 + tid * kTileItems, a1, e);
+  int32_t m = cap;
+  for (int base = a0; base < a1; base += kTile) {
+    const int a = base + tid * kTileItems;
+    int32_t hl[kTileItems], f[kTileItems], r[kTileItems];
+    load_tile(net, g, lab_cur, a, a1, e, hl, f, r);
+    load_arcs(net, a + kTile, a1, nx);
+#pragma unroll
+    for (int j = 0; j < kTileItems; ++j) {
+      if (r[j] > 0) m = min(m, hl[j]);
+      e[j] = nx[j];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = min(m, __shfl_xor_sync(kFull, m, o));
+  if ((tid & 31) == 0) sh.tl[buf][warp] = m;
+  __syncthreads();
+  if (tid == 0) {
+    for (int q = 0; q < kWarps; ++q) m = min(m, static_cast<int32_t>(sh.tl[buf][q]));
+    ch.lab[i] = min(m + 1, cap);
+    walked[1] += a1 - a0;
+    walked[2] += a1 - a0;
+  }
+  buf ^= 1;
+}
+
+// Puts chunk node i on this wave's list: a long segment (its CTA walks it)
+// at the list's back, counted in cntL, a short one (a warp walks it) at its
+// front, counted in cnt.
+__device__ __forceinline__ void enlist(const Net& net, const Chunk& ch, Shared& sh, int i) {
+  if (ch.wide && net.off[ch.lo + i + 1] - net.off[ch.lo + i] >= kCtaWalkArcs)
+    ch.list[ch.cl - 1 - atomicAdd(&sh.cntL, 1)] = i;
+  else
+    ch.list[atomicAdd(&sh.cnt, 1)] = i;
+}
+
 // One wave at `step`; returns whether a line node is still active.
 __device__ int superstep(const Net& net, const Glob& g, const Chunk& ch, Shared& sh, int step,
                          const int32_t* lab_cur, int32_t* lab_next, long long* walked) {
   const int tid = threadIdx.x, warp = tid >> 5, c = blockIdx.x, G = gridDim.x, n = net.n;
-  if (tid == 0) sh.cnt = 0;
+  if (tid == 0) sh.cnt = sh.cntL = 0;
   __syncthreads();
   for (int i = tid; i < ch.cl; i += kThreads) {
     const int e = ch.ex[i] > 0 && (ch.lab[i] & 1) == (step & 1);
     ch.elig[i] = e;
     ch.out[i] = 0;
-    if (e) ch.list[atomicAdd(&sh.cnt, 1)] = i;
+    if (e) enlist(net, ch, sh, i);
   }
   __syncthreads();
+  int buf = 0;
+  for (int k = 0; k < sh.cntL; ++k)
+    discharge_cta(net, g, ch, sh, ch.list[ch.cl - 1 - k], lab_cur, buf, walked);
   for (int k = warp; k < sh.cnt; k += kWarps)
     discharge(net, g, ch, ch.list[k], lab_cur, walked[0]);
   // 1: every push done; each owner applies what reached it
   grid_sync(g.bar, sh.bar_target);
-  if (tid == 0) sh.cnt = 0;
+  if (tid == 0) sh.cnt = sh.cntL = 0;
   __syncthreads();
   for (int i = tid; i < ch.cl; i += kThreads) {
     int32_t* in = g.in + ch.lo + i;
     const int32_t ex = add32(sub32(ch.ex[i], ch.out[i]), ldcg(in));
     *in = 0;
     ch.ex[i] = ex;
-    if (ch.elig[i] && ch.out[i] == 0 && ex > 0) ch.list[atomicAdd(&sh.cnt, 1)] = i;
+    if (ch.elig[i] && ch.out[i] == 0 && ex > 0) enlist(net, ch, sh, i);
   }
   if (c == G - 1 && tid < 2) {  // S and T
     const int v = n + 1 + tid;
@@ -658,6 +840,8 @@ __device__ int superstep(const Net& net, const Glob& g, const Chunk& ch, Shared&
     g.in[v] = 0;
   }
   __syncthreads();
+  for (int k = 0; k < sh.cntL; ++k)
+    relabel_cta(net, g, ch, sh, ch.list[ch.cl - 1 - k], lab_cur, 2 * (n + 3), buf, walked);
   for (int k = warp; k < sh.cnt; k += kWarps)
     relabel(net, g, ch, ch.list[k], lab_cur, 2 * (n + 3), walked[1]);
   __syncthreads();
@@ -684,7 +868,7 @@ __device__ void solve(const Net& net, const Glob& g, const Chunk& ch, Shared& sh
   int32_t* lab_cur = g.labA;
   int32_t* lab_next = g.labB;
   int step = 0, relabels = 0, recbuf = 0;
-  long long rounds = 0, walked[2] = {0, 0};
+  long long rounds = 0, walked[3] = {0, 0, 0};
   unsigned long long ns_rl = 0, ns_ss = 0;
   long long cy_rl = 0, cy_ss = 0;
   while (live && step < max_supersteps) {
@@ -724,6 +908,8 @@ __device__ void solve(const Net& net, const Glob& g, const Chunk& ch, Shared& sh
     g.left[c] = left;
     atomicAdd(reinterpret_cast<unsigned long long*>(scalars + 8), walked[0]);
     atomicAdd(reinterpret_cast<unsigned long long*>(scalars + 9), walked[1]);
+    // thread 0 alone counts its CTA's walks
+    atomicAdd(reinterpret_cast<unsigned long long*>(scalars + 10), walked[2]);
   }
   grid_sync(g.bar, sh.bar_target);
   if (c == 0) {
@@ -780,9 +966,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   ch.reach = ch.list;
   // the preflow: the wrapper's initial state (the twin's)
   for (int r = c * kThreads + tid; r < net.R; r += G * kThreads) g.f_read[r] = 0;
-  int act = 0;
+  int act = 0, wide = 0;
   for (int i = tid; i < ch.cl; i += kThreads) {
     const int gi = ch.lo + i;
+    wide |= net.off[gi + 1] - net.off[gi] >= kCtaWalkArcs;
     if (gi < n) g.f_chain[gi] = 0;
     g.f_src[gi] = net.cap_src[gi];
     g.f_snk[gi] = 0;
@@ -799,8 +986,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     g.in[v] = 0;
   }
   act = __syncthreads_or(act);
+  ch.wide = __syncthreads_or(wide);
   if (tid == 0) g.act[c] = act;
-  if (c == 0 && tid == 0) scalars[8] = scalars[9] = 0;
+  if (c == 0 && tid == 0) scalars[8] = scalars[9] = scalars[10] = 0;
   grid_sync(g.bar, sh.bar_target);
   const int live = __syncthreads_or(tid < G ? ldcg(g.act + tid) : 0);
   const int ng = max(net.grangeF[c + 1] - net.grangeF[c], net.grangeB[c + 1] - net.grangeB[c]);
@@ -840,10 +1028,11 @@ constexpr int64_t kCtrlWords = 16, kPartialWords = 12, kWsNodeArrays = 7, kTable
 // int32[G + 1] each CTA's groups; cap_src, cap_snk: int32[n + 1];
 // excess0, label0: int32[n + 3] the preflow; f_read int32[R], f_chain
 // int32[n], f_src and f_snk int32[n + 1], excess and label int32[n + 3]:
-// the final state, out; scalars: int64[10] out (step, excess_left, global
+// the final state, out; scalars: int64[11] out (step, excess_left, global
 // relabels, closure rounds, ns and clock64 cycles of CTA 0 inside global
 // relabels, then inside supersteps, the arcs the discharges read, the arcs
-// the relabels read); ws: the workspace.
+// the relabels read, the arcs of both that CTA walks read); ws: the
+// workspace.
 extern "C" int gd_push_relabel_solve(const void* arcs, const void* off, const void* hopF,
                                      const void* rangeF, const void* grpF, const void* grangeF,
                                      const void* hopB, const void* rangeB, const void* grpB,

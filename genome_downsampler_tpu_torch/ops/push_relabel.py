@@ -25,10 +25,11 @@ its tail and reads a table of distinct arcs: one entry a ``(tail, other
 end)`` group of valid reads with a residual member, compacted at each
 global relabel into shared memory where the CTA's groups fit. A superstep
 is two barriers: a warp walks each eligible node's segment of the
-tail-sorted arc table and pushes ``min(remaining, want)`` in table order,
-what reaches a head is added to it atomically; then each owner updates its
-excess and relabels into a second label buffer. The host reads once a
-solve: the scalars at the end.
+tail-sorted arc table (the whole CTA where the segment holds
+``CTA_WALK_ARCS`` arcs or more) and pushes ``min(remaining,
+want)`` in table order, what reaches a head is added to it atomically;
+then each owner updates its excess and relabels into a second label
+buffer. The host reads once a solve: the scalars at the end.
 
 What bounds it: the barriers a round must pass and the L2 round trips of
 the hops' gathers, not the bytes (about 8 a node and 10 a distinct read
@@ -76,6 +77,13 @@ _TAB_CAP_MAX = 4096
 # the workspace's layout (csrc/push_relabel.cu: kCtrlWords, kPartialWords,
 # kWsNodeArrays, kTableWords)
 _CTRL_WORDS, _PARTIAL_WORDS, _WS_NODE_ARRAYS, _TABLE_WORDS = 16, 12, 7, 6
+# a segment of this many arcs or more is walked by its CTA, CTA_TILE arcs
+# a step (csrc/push_relabel.cu: kCtaWalkArcs, kTile)
+CTA_WALK_ARCS, CTA_TILE = 256, 1024
+# the kernel's int64 scalars, in order (the C entry's note)
+SCALARS = ("supersteps", "excess_left", "global_relabels", "closure_rounds", "closure_ns",
+           "superstep_ns", "closure_cycles", "superstep_cycles", "arcs_discharged",
+           "arcs_relabelled", "arcs_cta_walked")
 
 
 def _node_words(n: int, G: int) -> int:
@@ -186,17 +194,18 @@ def launch(lib, prep: dict, max_supersteps: int, relabel_every: int):
     """One launch of ``lib``'s ``gd_push_relabel_solve`` (the kernel
     library, or another build of the same source) on ``prepare``'s
     tensors, uncounted, with no host read; returns ``(f_read, f_chain,
-    f_src, f_snk, excess, label, scalars)``, scalars int64[10] (step,
-    excess_left, global relabels, closure rounds, CTA 0's ns and clock64
-    cycles inside global relabels and inside supersteps, then the arcs the
-    discharges and the relabels read)."""
+    f_src, f_snk, excess, label, scalars)``, scalars int64[11] named by
+    ``SCALARS`` (step, excess_left, global relabels, closure rounds, CTA
+    0's ns and clock64 cycles inside global relabels and inside
+    supersteps, the arcs the discharges and the relabels read, then the
+    arcs of both that the CTA walks of long segments read)."""
     if not 0 <= max_supersteps < 2**31 or not 1 <= relabel_every < 2**31:
         raise ValueError(f"max_supersteps {max_supersteps} or relabel_every "
                          f"{relabel_every} outside the kernel's range")
     n, R, G = prep["n"], prep["R"], prep["G"]
     dev = prep["arcs"].device
     out = [torch.empty(m, dtype=_I32, device=dev) for m in (R, n, n + 1, n + 1, n + 3, n + 3)]
-    scalars = torch.empty(10, dtype=torch.int64, device=dev)
+    scalars = torch.empty(len(SCALARS), dtype=torch.int64, device=dev)
     ws = torch.empty(_ws_words(n, R, G, prep["nodes_in_ws"]), dtype=_I32, device=dev)
     ins = [prep["arcs"], prep["off"], *prep["hop_f"], *prep["hop_b"],
            *(prep[k] for k in ("cap_src", "cap_snk", "excess0", "label0"))]
@@ -208,6 +217,18 @@ def launch(lib, prep: dict, max_supersteps: int, relabel_every: int):
         )
     build.check("gd_push_relabel_solve", rc)
     return (*out, scalars)
+
+
+def kernel_counts(scalars: list) -> dict:
+    """The kernel's scalars (``launch``'s, read to the host) as
+    ``flow_solve``'s counts: each under its ``SCALARS`` name but the excess
+    left, with ``bodies`` (the kernel runs no no-op body) and one host
+    read."""
+    if len(scalars) != len(SCALARS):
+        raise ValueError(f"{len(scalars)} scalars; the kernel returns {len(SCALARS)}")
+    counts = dict(zip(SCALARS, scalars))
+    del counts["excess_left"]
+    return {**counts, "bodies": counts["supersteps"], "host_syncs": 1}
 
 
 def flow_solve(start, end, read_valid, capped, n: int, max_supersteps: int = 200_000,
@@ -222,7 +243,11 @@ def flow_solve(start, end, read_valid, capped, n: int, max_supersteps: int = 200
     kernel launch and one host read (the counts also give the kernel's
     ``closure_ns``, ``superstep_ns``, ``closure_cycles``,
     ``superstep_cycles``, and the arcs its walks read, ``arcs_discharged``
-    and ``arcs_relabelled``; ``laps_s`` has the host's ``arcs``, the time
+    and ``arcs_relabelled``, of which ``arcs_cta_walked`` by the CTA walks
+    of long segments; a discharge counts the arcs up to the end of the step
+    where its excess ran out, 32 a warp step or ``CTA_TILE`` a CTA step, so
+    ``arcs_discharged`` depends on the walks' widths; ``laps_s`` has the
+    host's ``arcs``, the time
     to queue the tables and the preflow, and ``kernel``, from the launch
     to its read), inside the profiler regions ``flow.prepare`` and
     ``flow.kernel``; on CPU tensors the twin."""
@@ -242,16 +267,11 @@ def flow_solve(start, end, read_valid, capped, n: int, max_supersteps: int = 200
     with annotate("flow.kernel"):
         *state, scalars = launch(build.load_kernels(), prep, max_supersteps, relabel_every)
         flow_solve.launches += 1
-        step, left, relabels, rounds, ns_rl, ns_ss, cy_rl, cy_ss, arcs_d, arcs_r = (
-            scalars.tolist())
+        values = scalars.tolist()
     t2 = time.perf_counter()
     st = FlowState(*state, step=scalars[0].to(_I32))
-    counts = {"supersteps": step, "bodies": step, "global_relabels": relabels,
-              "closure_rounds": rounds, "host_syncs": 1, "closure_ns": ns_rl,
-              "superstep_ns": ns_ss, "closure_cycles": cy_rl, "superstep_cycles": cy_ss,
-              "arcs_discharged": arcs_d, "arcs_relabelled": arcs_r,
-              "laps_s": {"arcs": t1 - t0, "kernel": t2 - t1}}
-    return st, left, counts
+    counts = {**kernel_counts(values), "laps_s": {"arcs": t1 - t0, "kernel": t2 - t1}}
+    return st, values[SCALARS.index("excess_left")], counts
 
 
 flow_solve.launches = 0

@@ -26,14 +26,18 @@ from genome_downsampler_tpu_torch.solvers.native_greedy import (
 )
 from genome_downsampler_tpu_torch.testing.reads_gen import rand_reads_uniform
 from genome_downsampler_tpu_torch.testing import pack_cases, variant_cases
+from genome_downsampler_tpu_torch.ops.push_relabel import CTA_TILE, CTA_WALK_ARCS
 from genome_downsampler_tpu_torch.testing.flow_cases import (
+    ARTIC_CASE,
     BOUNDARY_CASES as FLOW_BOUNDARY_CASES,
     CAPS,
     LARGE_CASE,
+    LARGE_LONG_CASE,
     WIDE_TABLES_CASE,
     SUITE_CASES,
     flow_case,
     flow_inputs,
+    segment_case,
 )
 from genome_downsampler_tpu_torch.testing.ssp_cases import (
     BOUNDARY_CASES,
@@ -1189,6 +1193,48 @@ def test_push_relabel_kernel_with_hop_tables_in_the_workspace_matches_twin(cuda)
     assert int(groups.max()) > pr._TAB_CAP_MAX >= int(groups.min()) > 0
     for cap in (26, 200_000):
         _flow_equal(cuda, batch, m, pad, cap)
+
+
+@pytest.mark.parametrize("cap", [26, 200_000])
+def test_push_relabel_kernel_walks_artic_segments_with_the_cta_and_matches_twin(cuda, cap):
+    """The ARTIC layout at 100,000 pairs, M=1000: every primer's and
+    amplicon end's segment (1,040-1,059 arcs) is past the CTA walk's
+    threshold."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    batch, m, pad = flow_case(ARTIC_CASE)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    off = pr.prepare(*flow_inputs(batch, m, pad, cuda), sms)["off"]
+    assert int((off[1:] - off[:-1] >= CTA_WALK_ARCS).sum()) == 196
+    counts = _flow_equal(cuda, batch, m, pad, cap)
+    assert 0 < counts["arcs_cta_walked"] < counts["arcs_discharged"] + counts["arcs_relabelled"]
+
+
+# one node's segment of each length about the CTA walk's threshold and
+# about one and two tiles
+SEGMENT_LENGTHS = sorted({x + d for x in (CTA_WALK_ARCS, CTA_TILE, 2 * CTA_TILE)
+                          for d in (-1, 0, 1)})
+
+
+@pytest.mark.parametrize("m", [40, 1500])
+@pytest.mark.parametrize("length", SEGMENT_LENGTHS)
+def test_push_relabel_kernel_segments_about_the_cta_walk_threshold_match_twin(cuda, length, m):
+    """A node of exactly ``length`` arcs, walked by its CTA from
+    CTA_WALK_ARCS on; at M=40 its excess runs out inside its first tile,
+    at M=1500 inside its second where the segment reaches it."""
+    counts = _flow_equal(cuda, *segment_case(length, m), 200_000)
+    assert (counts["arcs_cta_walked"] > 0) == (length >= CTA_WALK_ARCS)
+
+
+def test_push_relabel_kernel_walks_long_segments_with_node_arrays_in_the_workspace(cuda):
+    """900,000 line nodes (node arrays in the workspace) with three
+    1,504-arc segments, which their CTAs walk."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    batch, m, pad = flow_case(LARGE_LONG_CASE)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert pr.prepare(*flow_inputs(batch, m, pad, cuda), sms)["nodes_in_ws"]
+    assert _flow_equal(cuda, batch, m, pad, 26)["arcs_cta_walked"] > 0
 
 
 def test_push_relabel_cuda_equals_cpu_at_the_3000_base_cut(cuda):

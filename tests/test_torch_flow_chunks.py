@@ -22,8 +22,10 @@ held round by round to a per-round reference that ends where
 
 The superstep: a warp walks each eligible node's segment of the wrapper's
 arc table 32 arcs at a time, with an int64 prefix of what the admissible
-arcs want; heads gain through an accumulator; owners relabel into a second
-label buffer. The whole loop (global relabels and supersteps, as the
+arcs want, or, where the segment is long, the whole CTA a tile at a time,
+each thread a run of consecutive arcs, the prefix carried across tiles;
+heads gain through an accumulator; owners relabel into a second label
+buffer. The whole loop (global relabels and supersteps, as the
 kernel runs them) is held to the twin's final state after 1, 2 and 30
 waves and at convergence; no flow slot may be written twice in a wave, nor
 read by an arc that passes the label test after another node wrote it.
@@ -39,6 +41,7 @@ import torch
 
 from genome_downsampler_tpu_torch.ops import push_relabel as kernel
 from genome_downsampler_tpu_torch.solvers import push_relabel as twin
+from genome_downsampler_tpu_torch.testing.long_reads import amplicon_pairs
 from genome_downsampler_tpu_torch.testing.flow_cases import (
     BOUNDARY_CASES,
     SUITE_CASES,
@@ -358,8 +361,16 @@ def test_kernel_arc_table_is_the_twins_without_padded_reads(name):
 class Emulated:
     """The kernel's state and its loop, node by node, in Python."""
 
-    def __init__(self, start, end, valid, capped, n, C, threads):
+    def __init__(self, start, end, valid, capped, n, C, threads, cta_walk_arcs=None,
+                 tile=(4, 2)):
         self.n, self.C, self.threads = n, C, threads
+        # segments of cta_walk_arcs or more (none where None) walked a tile of
+        # tile[0] threads of tile[1] consecutive arcs each at a time
+        self.cta_walk_arcs, self.tile = cta_walk_arcs, tile
+        # arcs read by discharges, by relabels, by CTA walks; CTA discharges
+        # whose excess ran out before their tile's last arc
+        self.walked = [0, 0, 0]
+        self.stops_inside = 0
         self.num_nodes = n + 3
         R = start.shape[0]
         G = len(chunks(n + 1, C))
@@ -410,33 +421,44 @@ class Emulated:
         acc_in = [0] * self.num_nodes
         out = [0] * (n + 1)
         written = set()
+        def wants(v, arcs):
+            want = []
+            for a in arcs:
+                head, code = self.arcs[a]
+                r = self.residual(code & 7, code >> 3)
+                ok = lab_cur[v] == lab_cur[head] + 1
+                # the label test passes only where no other node writes
+                assert not ok or (self.KIND[code & 7][0], code >> 3) not in written
+                want.append(r if ok and r > 0 else 0)
+            return want
+
+        def push(a, amt):
+            head, code = self.arcs[a]
+            name, sign = self.KIND[code & 7]
+            key = (name, code >> 3)
+            assert key not in written, f"flow slot {key} written twice in a wave"
+            written.add(key)
+            self.f[name][code >> 3] += sign * amt
+            acc_in[head] += amt
+
         for v in (v for v in range(n + 1) if elig[v]):
             a0, a1 = self.off[v], self.off[v + 1]
             rem = self.excess[v]
-            for base in range(a0, a1, 32):
-                lanes = range(base, min(base + 32, a1))
-                want = []
-                for a in lanes:
-                    head, code = self.arcs[a]
-                    r = self.residual(code & 7, code >> 3)
-                    ok = lab_cur[v] == lab_cur[head] + 1
-                    # the label test passes only where no other node writes
-                    assert not ok or (self.KIND[code & 7][0], code >> 3) not in written
-                    want.append(r if ok and r > 0 else 0)
-                incl = np.cumsum(np.asarray(want, np.int64)).tolist()
-                for a, w, s in zip(lanes, want, incl):
-                    amt = min(max(rem - (s - w), 0), w)
-                    if amt > 0:
-                        head, code = self.arcs[a]
-                        name, sign = self.KIND[code & 7]
-                        key = (name, code >> 3)
-                        assert key not in written, f"flow slot {key} written twice in a wave"
-                        written.add(key)
-                        self.f[name][code >> 3] += sign * amt
-                        acc_in[head] += amt
-                rem -= incl[-1]
-                if rem <= 0:
-                    break
+            if self.long(v):
+                rem = self.discharge_cta(v, a0, a1, rem, wants, push)
+            else:
+                for base in range(a0, a1, 32):
+                    lanes = range(base, min(base + 32, a1))
+                    want = wants(v, lanes)
+                    incl = np.cumsum(np.asarray(want, np.int64)).tolist()
+                    for a, w, s in zip(lanes, want, incl):
+                        amt = min(max(rem - (s - w), 0), w)
+                        if amt > 0:
+                            push(a, amt)
+                    rem -= incl[-1]
+                    self.walked[0] += len(lanes)
+                    if rem <= 0:
+                        break
             out[v] = self.excess[v] - max(rem, 0)
         relabel = []
         for v in range(n + 1):
@@ -451,7 +473,49 @@ class Emulated:
                 if self.residual(code & 7, code >> 3) > 0:
                     m = min(m, lab_cur[head])
             self.label[v] = min(m + 1, cap)
+            length = self.off[v + 1] - self.off[v]
+            self.walked[1] += length
+            self.walked[2] += length if self.long(v) else 0
         self.step += 1
+
+    def long(self, v):
+        return (self.cta_walk_arcs is not None
+                and self.off[v + 1] - self.off[v] >= self.cta_walk_arcs)
+
+    def discharge_cta(self, v, a0, a1, rem, wants, push):
+        """The CTA's walk of node v's segment: each tile's wants, each
+        thread's run of them, the exclusive prefix of the threads' sums
+        after ``rem`` carried from the tiles before; stops after the tile
+        where the excess runs out. Returns the excess left (<= 0 where
+        spent)."""
+        threads, items = self.tile
+        size = threads * items
+        base = a0
+        while True:
+            arcs = range(base, base + size)
+            want = wants(v, [a for a in arcs if a < a1]) + [0] * max(base + size - a1, 0)
+            sums = [sum(want[t * items:(t + 1) * items]) for t in range(threads)]
+            before = 0
+            for t in range(threads):
+                run = rem - before
+                for j in range(items):
+                    w = want[t * items + j]
+                    amt = min(max(run, 0), w)
+                    run -= w
+                    if amt > 0:
+                        push(base + t * items + j, amt)
+                before += sums[t]
+            spent_at = next((k for k in range(size) if rem - sum(want[:k + 1]) <= 0), None)
+            rem -= before
+            base += size
+            if rem <= 0 or base >= a1:
+                break
+        if rem <= 0 and spent_at is not None and spent_at < min(size, a1 - (base - size)) - 1:
+            self.stops_inside += 1
+        read = min(base, a1) - a0
+        self.walked[0] += read
+        self.walked[2] += read
+        return rem
 
     def active(self):
         return any(x > 0 for x in self.excess[:self.n + 1])
@@ -482,6 +546,67 @@ def test_loop_kernel_way_equals_twin(name, cap):
     assert emu.step == steps == stats["supersteps"]
     assert sum(x for x in emu.excess[:n + 1] if x > 0) == left
     assert (emu.relabels, emu.rounds) == (stats["global_relabels"], stats["closure_rounds"])
+
+
+def small_artic(pairs, m):
+    """``flow_inputs`` of 4 ARTIC-like amplicons of 180 bases every 130 over
+    600 bases, ``pairs`` pairs of 40-60 bases: every primer start and
+    amplicon end holds about pairs / 4 reads' arcs."""
+    batch = amplicon_pairs(np.random.default_rng(pairs), 600, 4, 10, 130, 180, pairs, 40, 60)
+    return flow_inputs(batch, m, 512)
+
+
+def _equal_to_twin(emu, args, cap):
+    start, end, valid, capped, n = args
+    stats = {}
+    st, steps, left = twin.push_relabel_run(start, end, valid, capped, n, max_supersteps=cap,
+                                            stats=stats)
+    assert emu.f["read"] == st.f_read.tolist() and emu.f["chain"] == st.f_chain.tolist()
+    assert emu.f["src"] == st.f_src.tolist() and emu.f["snk"] == st.f_snk.tolist()
+    assert emu.excess == st.excess.tolist() and emu.label == st.label.tolist()
+    assert emu.step == steps == stats["supersteps"]
+    assert sum(x for x in emu.excess[:n + 1] if x > 0) == left
+    assert (emu.relabels, emu.rounds) == (stats["global_relabels"], stats["closure_rounds"])
+
+
+@pytest.mark.parametrize("case,cap,tile", [
+    ("seed0", 30, (4, 2)), ("seed1", 30, (3, 4)), ("artic m=6", 2, (1, 1)),
+    ("artic m=30", 30, (4, 2)), ("artic m=6", 200_000, (3, 4)),
+    ("artic m=30", 200_000, (1, 1))])
+def test_loop_with_cta_walks_equals_twin(case, cap, tile):
+    """Segments of 6 arcs or more (the ARTIC cases' primer starts and
+    amplicon ends, some nodes of the uniform ones) walked a tile at a
+    time; flows, excess, labels, steps and counts equal the twin's."""
+    if case.startswith("artic"):
+        args = small_artic(80, int(case.split("=")[1]))
+    else:
+        args = flow_inputs(*flow_case(case))
+    emu = Emulated(*args, C=256, threads=4, cta_walk_arcs=6, tile=tile).run(cap)
+    _equal_to_twin(emu, args, cap)
+    assert emu.walked[2] <= emu.walked[0] + emu.walked[1]
+    assert emu.walked[2] > 0 or not case.startswith("artic")
+
+
+def test_cta_walks_stop_inside_a_tile():
+    """At M=6 a primer's excess runs out a few arcs into its 24-arc
+    segment: the walk stops inside a tile; the relabels count the same arcs
+    as warp walks."""
+    args = small_artic(80, 6)
+    warp = Emulated(*args, C=256, threads=4).run(200_000)
+    cta = Emulated(*args, C=256, threads=4, cta_walk_arcs=6, tile=(4, 4)).run(200_000)
+    _equal_to_twin(cta, args, 200_000)
+    assert cta.stops_inside > 0 and warp.walked[2] == 0 < cta.walked[2]
+    # the relabels read whole segments either way
+    assert cta.walked[1] == warp.walked[1]
+
+
+def test_the_wrapper_mirrors_the_cta_walks_constants():
+    text = SOURCE.read_text()
+    const = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kThreads|kCtaWalkArcs|kTileItems) = (\d+);", text)}
+    assert kernel.CTA_WALK_ARCS == const["kCtaWalkArcs"]
+    assert kernel.CTA_TILE == const["kThreads"] * const["kTileItems"]
+    assert "constexpr int kTile = kThreads * kTileItems;" in text
 
 
 def test_flow_solve_on_the_cpu_is_the_twin():

@@ -4,6 +4,7 @@ and the solve's root region (``SpanGuard``), on the CPU: a stand-in
 
 import contextlib
 import os
+import re
 import subprocess
 import sys
 import time
@@ -161,3 +162,64 @@ def test_the_entry_solve_region_carries_the_process_solve_number(monkeypatch):
     solver.solve(5, batch)
     roots = [(n, a) for n, a in seen if n == "entry.solve"]
     assert len(roots) == 2 and int(roots[1][1]) == int(roots[0][1]) + 1 >= 2
+
+
+# ---- the push-relabel kernel's scalars ----
+
+def test_kernel_counts_name_the_push_relabel_kernels_eleven_scalars():
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    counts = pr.kernel_counts(list(range(100, 111)))
+    assert len(pr.SCALARS) == 11 and pr.SCALARS[-1] == "arcs_cta_walked"
+    assert counts == {"supersteps": 100, "global_relabels": 102, "closure_rounds": 103,
+                      "closure_ns": 104, "superstep_ns": 105, "closure_cycles": 106,
+                      "superstep_cycles": 107, "arcs_discharged": 108,
+                      "arcs_relabelled": 109, "arcs_cta_walked": 110, "bodies": 100,
+                      "host_syncs": 1}
+    # a library built from a source of ten scalars is refused, not misread
+    with pytest.raises(ValueError, match="10 scalars"):
+        pr.kernel_counts(list(range(10)))
+
+
+def test_the_push_relabel_source_returns_the_scalars_the_wrapper_reads():
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+
+    text = (Path(pr.__file__).parent / "csrc" / "push_relabel.cu").read_text()
+    assert int(re.search(r"scalars: int64\[(\d+)\] out", text).group(1)) == len(pr.SCALARS)
+    written = {int(k) for k in re.findall(r"scalars\[(\d+)\]", text)}
+    written |= {int(k) for k in re.findall(r"scalars \+ (\d+)\)", text)}
+    assert written == set(range(len(pr.SCALARS)))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["uniform", "artic"])
+def test_arcs_cta_walked_counts_the_long_segments_alone(layout):
+    """Config-1's uniform reads (segments of a few arcs) give no CTA walk;
+    the ARTIC layout at 100,000 pairs (segments past 1,040 arcs) gives some,
+    a part of what the walks read."""
+    from genome_downsampler_tpu_torch.ops import push_relabel as pr
+    from genome_downsampler_tpu_torch.testing.flow_cases import (
+        ARTIC_CASE,
+        flow_case,
+        flow_inputs,
+    )
+
+    dev = _card()
+    if layout == "uniform":
+        batch, m, pad = rand_reads_uniform(np.random.default_rng(12345), 25_000, 29_903,
+                                           150), 100, 4096
+    else:
+        batch, m, pad = flow_case(ARTIC_CASE)
+    _, _, counts = pr.flow_solve(*flow_inputs(batch, m, pad, dev))
+    walked = counts["arcs_discharged"] + counts["arcs_relabelled"]
+    assert walked > 0
+    if layout == "uniform":
+        assert counts["arcs_cta_walked"] == 0
+    else:
+        assert 0 < counts["arcs_cta_walked"] < walked
