@@ -58,6 +58,19 @@ def checked_indices(seed: int, completed, k: int) -> list:
     return sorted(completed[int(j)] for j in rng.choice(len(completed), size=k, replace=False))
 
 
+def reservoir_slot(seed: int, n: int, k: int) -> int | None:
+    """Where the window's ``n``-th completed answer (from 0) goes in a
+    reservoir of ``k`` (a slot to fill or replace), or None where it is not
+    kept: each draw comes from the seed and ``n`` alone, so the answers
+    kept are a uniform sample of the window's, chosen without knowing its
+    length. With no more than ``k`` answers kept, ``checked_indices``
+    takes them all."""
+    if n < k:
+        return n
+    j = int(generate.rng_for(seed, generate.CHECK, n + 1).integers(n + 1))
+    return j if j < k else None
+
+
 def judge(cell, seed: int, answers: dict) -> dict:
     """``{check: {"value", "limit"}}`` over the answers (window index ->
     selection) of the indices ``checked_indices`` draws."""

@@ -8,6 +8,10 @@ and the window is the sum of the samples' spans. A sample's span runs from
 handing its ``ReadBatch`` to ``solve`` until the read indices are on the
 host. The window runs samples until its time reaches ``seconds``; the last
 sample finishes inside it. No sample is handed over twice.
+
+The loop keeps only the answers the check will read: a reservoir of
+``check_samples``, drawn from the seed (``judge.reservoir_slot``), so that
+host memory holds that many answers however long the window runs.
 """
 
 from __future__ import annotations
@@ -22,14 +26,21 @@ from harness import generate, judge, trace
 
 
 def read_batch(sample: dict):
-    """The sample as the port's ``ReadBatch``: mates adjacent, first first."""
+    """The sample as the port's ``ReadBatch``: mates adjacent, first first.
+    A sample made at genome scale brings its ``bam_id``, ``seq_length`` and
+    ``is_first`` (shared, read-only) in the port's types, so nothing is
+    copied."""
     from genome_downsampler_tpu_torch.core.readbatch import ReadBatch
 
-    r = len(sample["start"])
+    if "bam_id" in sample:
+        bam_id, seq_length, is_first = sample["bam_id"], sample["seq_length"], sample["is_first"]
+    else:
+        r = len(sample["start"])
+        bam_id, is_first = np.arange(r, dtype=np.int64), np.arange(r) % 2 == 0
+        seq_length = sample["end"] - sample["start"] + 1
     return ReadBatch(
-        bam_id=np.arange(r, dtype=np.int64), start=sample["start"], end=sample["end"],
-        quality=sample["quality"], seq_length=sample["end"] - sample["start"] + 1,
-        is_first=np.arange(r) % 2 == 0, ref_genome_length=sample["genome_length"])
+        bam_id=bam_id, start=sample["start"], end=sample["end"], quality=sample["quality"],
+        seq_length=seq_length, is_first=is_first, ref_genome_length=sample["genome_length"])
 
 
 def registry_solver(name: str):
@@ -52,7 +63,8 @@ class Run:
     reads: list = field(default_factory=list)  # its reads
     genome: list = field(default_factory=list)  # its genome length
     stats: list = field(default_factory=list)  # the solver's last_stats after it
-    answers: dict = field(default_factory=dict)  # window index -> selection
+    answers: dict = field(default_factory=dict)  # window index -> selection, those kept
+    making: list = field(default_factory=list)  # seconds to make each window sample's ReadBatch
     attempted: int = 0
     failed: int = 0
     errors: list = field(default_factory=list)
@@ -103,10 +115,14 @@ def measure(cell, seed: int, seconds: float, traced: bool, make_solver, t_start:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=acts)
         prof.start()
+    keep = int(cell.traffic["check_samples"])
+    kept: list = []  # the reservoir's window indices, by slot
     i = 0
     while run.window_s < seconds:
+        t0 = time.perf_counter()
         smp = generate.sample(reads, seed, generate.WINDOW, i)
         batch = read_batch(smp)
+        run.making.append(time.perf_counter() - t0)
         run.attempted += 1
         t0 = time.perf_counter()
         try:
@@ -122,7 +138,15 @@ def measure(cell, seed: int, seconds: float, traced: bool, make_solver, t_start:
             run.reads.append(len(smp["start"]))
             run.genome.append(smp["genome_length"])
             run.stats.append(getattr(inner, "last_stats", None))
-            run.answers[i] = sel
+            slot = judge.reservoir_slot(seed, i, keep)
+            if slot is not None:
+                if slot < len(kept):
+                    del run.answers[kept[slot]]
+                    kept[slot] = i
+                else:
+                    kept.append(i)
+                run.answers[i] = sel
+        del smp, batch
         i += 1
     if prof is not None:
         prof.stop()

@@ -22,6 +22,7 @@ T_START = time.perf_counter()
 import argparse  # noqa: E402
 import json  # noqa: E402
 import shutil  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -76,10 +77,11 @@ def result(run, checks: dict, traced: bool) -> dict:
         res["breakdown"] = {"device_ops": run.trace.device_ops(),
                             "idle_gaps": run.trace.idle_gaps()}
     spans = sorted(run.spans)
-    res["detail"] = {"workload": run.cell.name, "seed": run.seed, "samples": len(run.answers),
+    res["detail"] = {"workload": run.cell.name, "seed": run.seed, "samples": len(run.reads),
                      "window_s": run.window_s, "first_span_s": run.spans[0] if run.spans else None,
                      "span_min_s": spans[0] if spans else None,
                      "span_max_s": spans[-1] if spans else None,
+                     "making_median_s": statistics.median(run.making) if run.making else None,
                      "card": power_limit(), "setup_parts_s": run.setup_parts,
                      "errors": run.errors[:3]}
     res["checks"] = checks  # last: the numbers compared, each beside its limit
